@@ -172,3 +172,51 @@ def events_oracle(ts, th_t, se_t, min_duration=5, join_gaps=True,
             "rate_decline": (imax - edge_de) / decline_period,
         })
     return events
+
+
+# ---- float32 engine vs this float64 oracle -------------------------------
+# Both sides see the same float32 series and climatology. Counts, indexes,
+# durations and categories are exact. Sums, means, maxima and rates round
+# at ~1e-7 relative in float32; 1e-5 leaves margin. Standard deviations
+# of an event's values carry the float32 quantisation of the inputs
+# (~1e-6 degC on a ~20 degC absolute temperature) relative to a spread
+# that can be ~0.05 degC, hence 1e-4. A prefix-sum (not segmented) engine
+# misses these by orders of magnitude at T=14610.
+F32_EVENT_ATOL = 1e-5
+_EXACT = ("event", "index_start", "index_end", "index_peak", "duration",
+          "duration_moderate", "duration_strong", "duration_severe",
+          "duration_extreme", "category")
+
+
+def f32_event_rtol(prop):
+    """Relative tolerance of one event property (None: must be exact)."""
+    if prop in _EXACT:
+        return None
+    return 1e-4 if prop.endswith("_var") else 1e-5
+
+
+def compare_events(col, evs, where=""):
+    """Check one cell's float32 event table against oracle events.
+
+    ``col``: {property: (K,) values} in event-slot order (NaN/-1 padded),
+    including ``time_start``/``time_end``/``time_peak`` as time indexes;
+    ``evs``: events_oracle's list. Returns the number of events checked.
+    """
+    n = int(np.isfinite(np.asarray(col["event"], np.float64)).sum())
+    assert n == len(evs), f"{where}: {n} events vs oracle {len(evs)}"
+    for k, ev in enumerate(evs):
+        for tname, iname in (("time_start", "index_start"),
+                             ("time_end", "index_end"),
+                             ("time_peak", "index_peak")):
+            assert int(col[tname][k]) == int(ev[iname]), (where, k, tname)
+        for prop, want in ev.items():
+            got = float(col[prop][k])
+            rtol = f32_event_rtol(prop)
+            if np.isnan(want):
+                assert np.isnan(got), (where, k, prop, got)
+            elif rtol is None:
+                assert got == want, (where, k, prop, got, want)
+            else:
+                assert abs(got - want) <= F32_EVENT_ATOL + rtol * abs(
+                    want), (where, k, prop, got, want)
+    return len(evs)

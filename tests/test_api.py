@@ -49,7 +49,7 @@ def test_threshold_golden_nosmooth(oisst_ts, clim_oisst_nosmooth):
 
 
 def test_threshold_float32_close_to_golden(oisst_ts, clim_oisst):
-    """The TPU dtype (f32) stays within 2e-3 degC of the f64 goldens."""
+    """The device dtype (f32) stays within 2e-3 degC of the f64 goldens."""
     clim = xm.threshold(oisst_ts, dtype=np.float32)
     th1 = clim["thresh"].sel(lat=-42.625, lon=148.125).values
     assert np.nanmax(np.abs(th1[82:] - clim_oisst["thresh1"].values[82:])

@@ -1,14 +1,18 @@
-"""Pallas kernel tests (interpret mode on CPU; compiled path is exercised
-by bench.py on real TPU and asserted equal there during development)."""
+"""Percentile kernel (Pallas, Triton route) in interpret mode on the CPU,
+and the engine selection around it. The compiled kernel runs on the card
+in tests/test_gpu.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from xmhw_tpu.core import engine
 from xmhw_tpu.core.calendar import (build_window_index,
                                     build_window_ranges, compute_doy)
 from xmhw_tpu.core.clim import doy_clim
-from xmhw_tpu.ops.pallas.doy_quantile import doy_clim_pallas
+from xmhw_tpu.ops.pallas import doy_quantile
+from xmhw_tpu.ops.pallas.doy_quantile import pallas_doy_clim
 from xmhw_tpu.xrlite import TimeIndex
 
 
@@ -22,6 +26,20 @@ def window_tables():
     return len(t), doy, ndoy, gidx, starts, lens, ny, rmax
 
 
+@pytest.fixture
+def gpu_engine(monkeypatch):
+    """Select the GPU engine and run its kernel in interpret mode."""
+    monkeypatch.setattr(engine, "device_engine", lambda: "gpu")
+    monkeypatch.setattr(doy_quantile, "INTERPRET", True)
+
+
+def _kernel(ts, tables, **kw):
+    T, doy, ndoy, gidx, starts, lens, ny, rmax = tables
+    return pallas_doy_clim(jnp.asarray(ts), jnp.asarray(starts.reshape(-1)),
+                           jnp.asarray(lens.reshape(-1)), ndoy=ndoy, ny=ny,
+                           rmax=rmax, interpret=True, **kw)
+
+
 def test_ranges_equal_gather_table(window_tables):
     T, doy, ndoy, gidx, starts, lens, ny, rmax = window_tables
     for d in range(0, ndoy, 37):
@@ -33,255 +51,129 @@ def test_ranges_equal_gather_table(window_tables):
 
 
 def test_pallas_clim_matches_xla(window_tables):
+    """Kernel == doy_clim's float32 radix-select: thresholds bit-equal,
+    means to float32 rounding."""
     T, doy, ndoy, gidx, starts, lens, ny, rmax = window_tables
     rng = np.random.default_rng(0)
-    # ties (0.01-quantized), negatives, NaN runs, non-multiple-of-128 C
+    # ties (0.01-quantized), negatives, NaN runs, C not a power of two
     ts = np.round(rng.normal(0, 3, (T, 130)), 2).astype(np.float32)
     ts[100:160, 7] = np.nan
     ts[:, 11] = np.nan  # all-NaN (land-like padded) cell
     th0, se0 = doy_clim(jnp.asarray(ts), jnp.asarray(gidx), 90)
-    th1, se1 = doy_clim_pallas(ts, starts, lens, ny, rmax, 90,
-                               interpret=True)
-    np.testing.assert_allclose(np.asarray(th1), np.asarray(th0),
-                               atol=1e-6, equal_nan=True)
+    th1, se1 = _kernel(ts, window_tables)
+    np.testing.assert_array_equal(np.asarray(th1), np.asarray(th0))
     np.testing.assert_allclose(np.asarray(se1), np.asarray(se0),
-                               atol=1e-5, equal_nan=True)
+                               rtol=1e-6, atol=1e-6, equal_nan=True)
     assert np.isnan(np.asarray(th1)[:, 11]).all()
 
 
 def test_pipeline_pallas_flag_cpu(window_tables, monkeypatch):
-    """run_clim(use_pallas=...) plumbing (interpret-free CPU check that
-    the flag selects the XLA path on float64)."""
+    """On the CPU engine run_clim takes the XLA path: the kernel block
+    function is never called."""
     import xmhw_tpu.core.pipeline as P
 
+    def boom(*a, **k):
+        raise AssertionError("kernel path taken on the CPU engine")
+
+    monkeypatch.setattr(P, "_kernel_clim_block", boom)
     T, doy, ndoy, gidx, starts, lens, ny, rmax = window_tables
     rng = np.random.default_rng(1)
-    ts = rng.normal(15, 2, (T, 40)).astype(np.float64)
+    ts = rng.normal(15, 2, (T, 40)).astype(np.float32)
     a = P.run_clim(ts, doy, 5, ndoy, 90, True, 31, True)
     assert a[0].shape == (ndoy, 40)
 
 
-def test_run_bound_kernel():
-    """Pallas running-bound primitive (forward/backward RLE scans)."""
-    import jax.numpy as jnp
-
-    from xmhw_tpu.ops.pallas.run_bound import run_bound
-
-    rng = np.random.default_rng(0)
-    T, C = 3001, 256
-    m = rng.random((T, C)) > 0.6
-    idx = np.arange(T)[:, None]
-    fwd_ref = np.maximum.accumulate(np.where(m, idx, -1), axis=0)
-    bwd_ref = np.minimum.accumulate(
-        np.where(m, idx, T)[::-1], axis=0)[::-1]
-    np.testing.assert_array_equal(
-        np.asarray(run_bound(jnp.asarray(m), True, interpret=True)),
-        fwd_ref)
-    np.testing.assert_array_equal(
-        np.asarray(run_bound(jnp.asarray(m), False, interpret=True)),
-        bwd_ref)
-
-
-@pytest.mark.slow
-def test_fused_detect_scans_kernel():
-    """One-pass pallas detect-scan kernel == XLA engine (interpret)."""
-    import jax.numpy as jnp
-
-    from xmhw_tpu.core import features_scan as F2
-
-    rng = np.random.default_rng(3)
-    T, C, D = 700, 128, 40
-    doy_pos = (np.arange(T) % D).astype(np.int32)
-    ts = (15 + 3 * np.sin(2 * np.pi * np.arange(T) / 365)[:, None]
-          + np.cumsum(rng.normal(0, .6, (T, C)), 0) * 0.3).astype(
-              np.float32)
-    ts[50:60, 3] = np.nan
-    th = (16.5 + rng.normal(0, .2, (D, C))).astype(np.float32)
-    se = (15 + rng.normal(0, .1, (D, C))).astype(np.float32)
-    a, na, ia = F2.detect_kernel(jnp.asarray(ts), jnp.asarray(th),
-                                 jnp.asarray(se), jnp.asarray(doy_pos),
-                                 K=64, intermediate=True)
-    b, nb, ib = F2.detect_kernel(jnp.asarray(ts), jnp.asarray(th),
-                                 jnp.asarray(se), jnp.asarray(doy_pos),
-                                 K=64, use_pallas_scan=True,
-                                 pallas_interpret=True, intermediate=True)
-    np.testing.assert_array_equal(np.asarray(na), np.asarray(nb))
-    for k in a:
-        x = np.asarray(a[k], np.float64)
-        y = np.asarray(b[k], np.float64)
-        m = np.isfinite(x)
-        assert (m == np.isfinite(y)).all(), k
-        np.testing.assert_allclose(x[m], y[m], rtol=2e-3, atol=2e-3,
-                                   err_msg=k)
-    for k in ia:
-        np.testing.assert_array_equal(
-            np.nan_to_num(np.asarray(ia[k], np.float64), nan=-9e9),
-            np.nan_to_num(np.asarray(ib[k], np.float64), nan=-9e9),
-            err_msg=k)
-
-
-def test_doy_clim_batched_bit_equal(window_tables):
-    """G-doy batched clim kernel == single-doy kernel, bit for bit
-    (same per-doy arithmetic, only the loop structure changes)."""
-    import jax.numpy as jnp
-
-    from xmhw_tpu.ops.pallas.doy_quantile import pallas_doy_clim
-
-    T, doy, ndoy, _gidx, starts, lens, ny, rmax = window_tables
+@pytest.mark.parametrize("C", [37, 16, 5])
+def test_doy_clim_batched_bit_equal(window_tables, C):
+    """Kernel edge cases == doy_clim, bit for bit, with a partial last
+    cell tile (37), exactly one tile (16) and fewer cells than a tile
+    (5): ties, a constant cell, a sign-crossing cell, a near-zero cell,
+    all-NaN cells and a NaN gap."""
+    T, doy, ndoy, gidx, starts, lens, ny, rmax = window_tables
     rng = np.random.default_rng(1)
-    ts = (15 + rng.normal(0, 2, (T, 128))).astype(np.float32)
-    ts[30:90, 7] = np.nan
-    # common-prefix-skip edge cases: a constant lane (min^max == 0, the
-    # radix loop degenerates to one iteration), a sign-crossing lane
-    # (no common bits at all), an all-NaN lane, and a near-zero lane
-    ts[:, 19] = 3.25
-    ts[:, 23] = rng.normal(0.0, 5.0, T).astype(np.float32)
-    ts[:, 29] = np.nan
-    ts[:, 31] = rng.normal(0.0, 1e-6, T).astype(np.float32)
-    tsp = jnp.pad(jnp.asarray(ts), ((0, rmax), (0, 0)),
-                  constant_values=jnp.nan)
-    s = jnp.asarray(np.asarray(starts).reshape(-1))
-    ln = jnp.asarray(np.asarray(lens).reshape(-1))
-    th0, se0 = pallas_doy_clim(tsp, s, ln, ndoy=ndoy, ny=ny, rmax=rmax,
-                               interpret=True, batch=0)
-    for G in (4, 8):
-        th1, se1 = pallas_doy_clim(tsp, s, ln, ndoy=ndoy, ny=ny,
-                                   rmax=rmax, interpret=True, batch=G)
-        for a, b in ((th0, th1), (se0, se1)):
-            np.testing.assert_array_equal(
-                np.nan_to_num(np.asarray(a), nan=-9e9),
-                np.nan_to_num(np.asarray(b), nan=-9e9))
+    ts = (15 + rng.normal(0, 2, (T, 37))).astype(np.float32)
+    ts[30:90, 1] = np.nan
+    ts[:, 2] = 3.25
+    ts[:, 3] = rng.normal(0.0, 5.0, T).astype(np.float32)
+    ts[:, 4] = np.nan
+    ts[:, 36] = np.nan
+    ts[:, 13] = rng.normal(0.0, 1e-6, T).astype(np.float32)
+    ts[:, 15] = np.round(ts[:, 15])  # heavy ties
+    ts = ts[:, :C]
+    th0, se0 = doy_clim(jnp.asarray(ts), jnp.asarray(gidx), 90)
+    th1, se1 = _kernel(ts, window_tables)
+    np.testing.assert_array_equal(np.asarray(th1), np.asarray(th0))
+    np.testing.assert_allclose(np.asarray(se1), np.asarray(se0),
+                               rtol=1e-6, atol=1e-6, equal_nan=True)
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("min_duration,max_gap,join_gaps", [
-    (5, 2, True),   # defaults: fold=4, latch=2 (8-row groups)
-    (3, 1, False),  # no-join: fold=2, latch=2 (4-row groups)
-    (2, 2, True),   # sep=5: fold=4, latch=1 (latch disabled)
-    (9, 4, True),   # sep=14: fold=4, latch=2
+@pytest.mark.parametrize("pctile", [10, 50, 99, 37.5])
+def test_pallas_clim_percentiles(window_tables, pctile):
+    """Integral and non-integral percentiles select the same order
+    statistics as doy_clim."""
+    T, doy, ndoy, gidx, starts, lens, ny, rmax = window_tables
+    rng = np.random.default_rng(2)
+    ts = np.round(rng.normal(20, 1, (T, 9)), 1).astype(np.float32)
+    th0, _ = doy_clim(jnp.asarray(ts), jnp.asarray(gidx), pctile)
+    th1, _ = _kernel(ts, window_tables, pctile=pctile)
+    np.testing.assert_array_equal(np.asarray(th1), np.asarray(th0))
+
+
+def test_pallas_clim_short_series():
+    """A series shorter than a year: many (doy, year) pools are empty
+    (NaN rows) and windows clip at both ends."""
+    t = np.arange("2001-03-01", "2001-07-01",
+                  dtype="datetime64[D]").astype("datetime64[ns]")
+    doy, ndoy = compute_doy(TimeIndex(t))
+    tables = (len(t), doy, ndoy, build_window_index(doy, 5, ndoy)[0],
+              *build_window_ranges(doy, 5, ndoy))
+    ts = np.random.default_rng(3).normal(10, 1, (len(t), 5)).astype(
+        np.float32)
+    th0, se0 = doy_clim(jnp.asarray(ts), jnp.asarray(tables[3]), 90)
+    th1, se1 = _kernel(ts, tables)
+    np.testing.assert_array_equal(np.asarray(th1), np.asarray(th0))
+    assert np.isnan(np.asarray(th1)[0]).all()  # 1 Jan: empty pool
+
+
+def test_run_clim_gpu_engine_matches_xla(window_tables, gpu_engine):
+    """run_clim on the GPU engine (kernel + feb29 + smoothing, blocked)
+    == run_clim on the CPU engine."""
+    import xmhw_tpu.core.pipeline as P
+
+    T, doy, ndoy, gidx, starts, lens, ny, rmax = window_tables
+    ts = np.random.default_rng(4).normal(15, 2, (T, 70)).astype(np.float32)
+    ts[:, 5] = np.nan
+    got = P.run_clim(ts, doy, 5, ndoy, 90, True, 31, True, block=32)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(engine, "device_engine", lambda: "cpu")
+        want = P.run_clim(ts, doy, 5, ndoy, 90, True, 31, True, block=32)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("platform,want", [("cpu", "cpu"), ("gpu", "gpu")])
+def test_device_engine_follows_platform(monkeypatch, platform, want):
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert engine.device_engine() == want
+
+
+@pytest.mark.parametrize("platform", ["rocm", "metal", "neuron"])
+def test_device_engine_rejects_other_platforms(monkeypatch, platform):
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    with pytest.raises(RuntimeError, match="no device engine"):
+        engine.device_engine()
+
+
+@pytest.mark.parametrize("eng,dtype,daily,kernel", [
+    ("gpu", np.float32, True, True),
+    ("gpu", np.float64, True, False),   # the kernel is float32 only
+    ("gpu", np.float32, False, False),  # duplicate sub-daily doys
+    ("cpu", np.float32, True, False),
 ])
-def test_detect_scan_latch_dense_phases(min_duration, max_gap,
-                                        join_gaps):
-    """END-AWARE LATCH == XLA engine at the densest legal event packing.
+def test_kernel_clim_choice(monkeypatch, eng, dtype, daily, kernel):
+    from xmhw_tpu.core.pipeline import _kernel_clim_tables
 
-    Events repeat at EXACTLY the minimal end separation (minDuration +
-    maxGap+1 when joining, minDuration+1 otherwise), phase-shifted per
-    column so event ends land on every latch-group offset — including
-    sub-block boundaries and the last row of a 128-row kernel block
-    (where the in-block end detector cannot see the next day and must
-    fall back to the default sub-block pick).
-    """
-    import jax.numpy as jnp
-
-    from xmhw_tpu.core import features_scan as F2
-
-    sep = min_duration + (max_gap + 1 if join_gaps else 1)
-    T, C, D = 700, 128, 40
-    doy_pos = (np.arange(T) % D).astype(np.int32)
-    th = np.full((D, C), 0.5, np.float32)
-    se = np.zeros((D, C), np.float32)
-    rng = np.random.default_rng(7)
-    ts = np.zeros((T, C), np.float32)
-    for c in range(C):
-        phase = c % (2 * sep)  # covers all group offsets twice over
-        for s in range(phase, T - min_duration, sep):
-            ts[s:s + min_duration, c] = 1.0 + 0.1 * rng.random(
-                min_duration).astype(np.float32)
-    # a NaN hole splitting one column's run pattern
-    ts[256:260, 5] = np.nan
-    args = (jnp.asarray(ts), jnp.asarray(th), jnp.asarray(se),
-            jnp.asarray(doy_pos))
-    kw = dict(K=128, min_duration=min_duration, max_gap=max_gap,
-              join_gaps=join_gaps)
-    a, na, _ = F2.detect_kernel(*args, **kw)
-    b, nb, _ = F2.detect_kernel(*args, use_pallas_scan=True,
-                                pallas_interpret=True, **kw)
-    np.testing.assert_array_equal(np.asarray(na), np.asarray(nb))
-    for k in a:
-        x = np.asarray(a[k], np.float64)
-        y = np.asarray(b[k], np.float64)
-        m = np.isfinite(x)
-        assert (m == np.isfinite(y)).all(), k
-        np.testing.assert_allclose(x[m], y[m], rtol=2e-3, atol=2e-3,
-                                   err_msg=k)
-
-
-@pytest.mark.slow
-def test_detect_scan_checkpoint_mode_matches_full():
-    """sb-checkpoint kernel + XLA recombination == full-write kernel.
-
-    The checkpoint path (pallas_sb) writes only every 16th scan state
-    row and reconstructs event-end states from the raw series; events
-    are engineered to end mid-sub-block, at sub-block boundaries, and
-    to span many sub-blocks, with several events inside one sub-block.
-    """
-    import jax.numpy as jnp
-
-    from xmhw_tpu.core import features_scan as F2
-
-    rng = np.random.default_rng(11)
-    T, C, D = 700, 128, 40
-    doy_pos = (np.arange(T) % D).astype(np.int32)
-    th = np.full((D, C), 16.0, np.float32)
-    se = np.full((D, C), 15.0, np.float32)
-    ts = np.full((T, C), 15.0, np.float32)
-    # cell 0: one long event spanning several 16-row sub-blocks
-    ts[100:180, 0] = 17 + rng.normal(0, .3, 80)
-    # cell 1: short events with 3-day gaps packed into few sub-blocks
-    for s in range(200, 260, 9):
-        ts[s:s + 6, 1] = 17.0
-    # cell 2: event ending exactly at a sub-block boundary (row 15)
-    ts[5:16, 2] = 17.5
-    # cell 3: event ending at row 16 (first row of next sub-block)
-    ts[5:17, 3] = 17.5
-    # remaining cells: random walks with NaN holes
-    ts[:, 4:] = (16 + np.cumsum(rng.normal(0, .5, (T, C - 4)), 0) * .2
-                 ).astype(np.float32)
-    ts[300:310, 10] = np.nan
-    args = (jnp.asarray(ts), jnp.asarray(th), jnp.asarray(se),
-            jnp.asarray(doy_pos))
-    full, nf, _ = F2.detect_kernel(*args, K=64, use_pallas_scan=True,
-                                   pallas_interpret=True, pallas_sb=0)
-    ck, nc, _ = F2.detect_kernel(*args, K=64, use_pallas_scan=True,
-                                 pallas_interpret=True, pallas_sb=16)
-    np.testing.assert_array_equal(np.asarray(nf), np.asarray(nc))
-    for k in full:
-        x = np.asarray(full[k], np.float64)
-        y = np.asarray(ck[k], np.float64)
-        m = np.isfinite(x)
-        assert (m == np.isfinite(y)).all(), k
-        # f32 sum association differs between the in-kernel tree scan
-        # and the XLA mini-scan; the variance's (ss - n*mean^2)
-        # cancellation amplifies the ulp difference
-        np.testing.assert_allclose(x[m], y[m], rtol=1e-3, atol=1e-5,
-                                   err_msg=k)
-
-
-@pytest.mark.slow
-def test_pallas_rle_filter_matches_xla():
-    """Streaming-RLE mhw_filter (interpret) == XLA cummax/cummin path,
-    bit-for-bit, across random masks, quirk mode, and join settings."""
-    import jax.numpy as jnp
-
-    from xmhw_tpu.core.events import mhw_filter as xla_filter
-    from xmhw_tpu.ops.pallas.rle import pallas_mhw_filter
-
-    rng = np.random.default_rng(11)
-    for trial, (T, md, jg, mg, qk) in enumerate([
-            (700, 5, True, 2, False),
-            (700, 5, True, 2, True),
-            (513, 3, True, 4, False),
-            (1030, 5, False, 2, False),
-            (64, 2, True, 1, False)]):
-        b = rng.random((T, 128)) < 0.45
-        b[0] = trial % 2 == 0
-        b[-1] = True
-        a = xla_filter(jnp.asarray(b), min_duration=md, join_gaps=jg,
-                       max_gap=mg, day0_fillna_quirk=qk)
-        p = pallas_mhw_filter(jnp.asarray(b), min_duration=md,
-                              join_gaps=jg, max_gap=mg,
-                              day0_fillna_quirk=qk, interpret=True)
-        for k in a:
-            np.testing.assert_array_equal(
-                np.asarray(a[k]), np.asarray(p[k]),
-                err_msg=f"{k} trial={trial}")
+    monkeypatch.setattr(engine, "device_engine", lambda: eng)
+    doy = np.arange(1, 61) if daily else np.repeat(np.arange(1, 16), 4)
+    got = _kernel_clim_tables(np.dtype(dtype), doy, 2, 366)
+    assert (got is not None) == kernel

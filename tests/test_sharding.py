@@ -69,27 +69,27 @@ def test_pad_cells():
     assert same.shape == (4, 10)
 
 
-def test_pallas_clim_under_shard_map():
-    """The pallas climatology path wrapped in shard_map over the 8-device
-    mesh (interpret mode) matches the XLA path — exercises the exact
-    multi-TPU code branch of run_clim."""
+def test_pallas_clim_under_shard_map(monkeypatch):
+    """The GPU engine's percentile kernel wrapped in shard_map over the
+    8-device mesh (interpret mode) matches the XLA path — exercises the
+    multi-card code branch of run_clim."""
     import xmhw_tpu.core.pipeline as P
+    from xmhw_tpu.core import engine
     from xmhw_tpu.core.calendar import compute_doy
+    from xmhw_tpu.ops.pallas import doy_quantile
     from xmhw_tpu.xrlite import TimeIndex
 
     rng = np.random.default_rng(0)
     t = np.arange("2001-01-01", "2004-01-01",
                   dtype="datetime64[D]").astype("datetime64[ns]")
-    T = len(t)
     doy, ndoy = compute_doy(TimeIndex(t))
-    ts = np.round(rng.normal(15, 3, (T, 1024)), 2).astype(np.float32)
-    mesh = cell_mesh()
+    ts = np.round(rng.normal(15, 3, (len(t), 300)), 2).astype(np.float32)
+    th_x, se_x = P.run_clim(ts, doy, 5, ndoy, 90, True, 31, True)
+    monkeypatch.setattr(engine, "device_engine", lambda: "gpu")
+    monkeypatch.setattr(doy_quantile, "INTERPRET", True)
     th_p, se_p = P.run_clim(ts, doy, 5, ndoy, 90, True, 31, True,
-                            mesh=mesh, use_pallas=True,
-                            pallas_interpret=True, block=512)
-    th_x, se_x = P.run_clim(ts, doy, 5, ndoy, 90, True, 31, True,
-                            use_pallas=False)
-    np.testing.assert_allclose(th_p, th_x, atol=1e-5, equal_nan=True)
+                            mesh=cell_mesh(), block=256)
+    np.testing.assert_array_equal(th_p, th_x)
     np.testing.assert_allclose(se_p, se_x, atol=1e-5, equal_nan=True)
 
 
@@ -138,11 +138,13 @@ def test_run_fused_mesh_matches_single():
 
 
 @pytest.mark.slow
-def test_run_fused_pallas_under_shard_map():
-    """run_fused's Pallas clim+detect branches under the 8-device mesh
-    (interpret mode) match the XLA single-device path."""
+def test_run_fused_pallas_under_shard_map(monkeypatch):
+    """run_fused's GPU-engine climatology (percentile kernel, interpret
+    mode) under the 8-device mesh matches the XLA single-device path."""
     import xmhw_tpu.core.pipeline as P
+    from xmhw_tpu.core import engine
     from xmhw_tpu.core.calendar import compute_doy
+    from xmhw_tpu.ops.pallas import doy_quantile
     from xmhw_tpu.xrlite import TimeIndex
 
     rng = np.random.default_rng(6)
@@ -152,10 +154,12 @@ def test_run_fused_pallas_under_shard_map():
     doy_pos = (doy - 1).astype(np.int32)
     C = 1024
     ts = np.round(rng.normal(15, 3, (len(t), C)), 2).astype(np.float32)
-    a = P.run_fused(ts, doy, doy_pos, w=5, ndoy=ndoy, use_pallas=False)
+    a = P.run_fused(ts, doy, doy_pos, w=5, ndoy=ndoy)
+    monkeypatch.setattr(engine, "device_engine", lambda: "gpu")
+    monkeypatch.setattr(doy_quantile, "INTERPRET", True)
     b = P.run_fused(ts, doy, doy_pos, w=5, ndoy=ndoy, mesh=cell_mesh(),
-                    block=512, use_pallas=True, pallas_interpret=True)
-    np.testing.assert_allclose(a[0], b[0], atol=1e-5, equal_nan=True)
+                    block=512)
+    np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[3], b[3])
     for v in ("event", "duration", "time_start"):
         np.testing.assert_array_equal(
@@ -164,39 +168,3 @@ def test_run_fused_pallas_under_shard_map():
     for v in ("intensity_max", "rate_onset"):
         np.testing.assert_allclose(a[2][v], b[2][v], atol=2e-4,
                                    rtol=2e-4, equal_nan=True, err_msg=v)
-
-
-@pytest.mark.slow
-def test_pallas_detect_under_shard_map():
-    """The Pallas detect-scan path wrapped in shard_map over the 8-device
-    mesh (interpret mode) matches the XLA path — exercises the exact
-    multi-TPU detect branch of run_detect (no more accuracy downgrade
-    under a mesh)."""
-    import xmhw_tpu.core.pipeline as P
-    from xmhw_tpu.core.calendar import compute_doy
-    from xmhw_tpu.xrlite import TimeIndex
-
-    rng = np.random.default_rng(1)
-    t = np.arange("2001-01-01", "2004-01-01",
-                  dtype="datetime64[D]").astype("datetime64[ns]")
-    T = len(t)
-    doy, ndoy = compute_doy(TimeIndex(t))
-    C = 1024
-    ts = np.round(rng.normal(15, 3, (T, C)), 2).astype(np.float32)
-    th, se = P.run_clim(ts, doy, 5, ndoy, 90, True, 31, True,
-                        use_pallas=False)
-    doy_pos = (doy - 1).astype(np.int32)
-    mesh = cell_mesh()
-    tbl_p, nev_p, _ = P.run_detect(
-        ts, th, se, doy_pos, 5, True, 2, mesh=mesh, use_pallas=True,
-        pallas_interpret=True, block=512)
-    tbl_x, nev_x, _ = P.run_detect(
-        ts, th, se, doy_pos, 5, True, 2, use_pallas=False)
-    np.testing.assert_array_equal(nev_p, nev_x)
-    for v in ("event", "duration", "time_start", "time_end"):
-        np.testing.assert_array_equal(np.nan_to_num(tbl_p[v], nan=-9),
-                                      np.nan_to_num(tbl_x[v], nan=-9))
-    for v in ("intensity_max", "intensity_cumulative", "rate_onset",
-              "severity_var"):
-        np.testing.assert_allclose(tbl_p[v], tbl_x[v], atol=2e-4, rtol=2e-4,
-                                   equal_nan=True)

@@ -195,18 +195,19 @@ def test_run_clim_subdaily_falls_back_to_gather(monkeypatch):
     """run_clim with duplicated doys must fall back to the XLA gather
     path (pooling everything) instead of silently using a wrong range
     table — engines must agree."""
-    import jax.numpy as jnp
-
+    from xmhw_tpu.core import engine
     from xmhw_tpu.core.pipeline import run_clim
+    from xmhw_tpu.ops.pallas import doy_quantile
 
     rng = np.random.default_rng(0)
     reps, days = 4, 60
     doy = np.repeat(np.arange(1, days + 1), reps).astype(np.int64)
     ts = rng.normal(15, 2, (days * reps, 4)).astype(np.float32)
+    th_ref, se_ref = run_clim(ts, doy, 2, 366, 90, False, 31, False)
+    monkeypatch.setattr(engine, "device_engine", lambda: "gpu")
+    monkeypatch.setattr(doy_quantile, "INTERPRET", True)
     th_forced, se_forced = run_clim(ts, doy, 2, 366, 90, False, 31,
-                                    False, use_pallas=True)
-    th_ref, se_ref = run_clim(ts, doy, 2, 366, 90, False, 31, False,
-                              use_pallas=False)
+                                    False)
     np.testing.assert_allclose(np.asarray(th_forced),
                                np.asarray(th_ref), equal_nan=True)
     np.testing.assert_allclose(np.asarray(se_forced),

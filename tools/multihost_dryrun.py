@@ -113,8 +113,10 @@ def main() -> int:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     procs = [
+        # children stay on the CPU: they never open a card
         subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                          str(r), str(port)])
+                          str(r), str(port)],
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
         for r in range(N_PROC)
     ]
     rc = 0

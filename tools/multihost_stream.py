@@ -155,8 +155,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         _write_input(os.path.join(d, "sst.nc"))
         procs = [
+            # children stay on the CPU: they never open a card
             subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                              str(r), str(port), d])
+                              str(r), str(port), d],
+                             env={**os.environ, "JAX_PLATFORMS": "cpu"})
             for r in range(N_PROC)
         ]
         rc = 0

@@ -61,8 +61,8 @@ def _thresh_args(p):
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="python -m xmhw_tpu",
-        description="TPU-native marine heatwave detection — streamed "
-                    "file-to-file pipelines (Hobday et al. 2016)")
+        description="Accelerator-native marine heatwave detection — "
+                    "streamed file-to-file pipelines (Hobday et al. 2016)")
     ap.add_argument("--f64", action="store_true",
                     help="float64 pipeline (CPU bit-parity mode)")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -146,7 +146,7 @@ def _enable_compile_cache():
 
 def _warmup(a, dtype):
     """Run the standard program shapes once so their executables land in
-    the persistent compile cache (the TPU answer to the reference's
+    the persistent compile cache (the accelerator's answer to the reference's
     zero-compile pandas start: pay the compile once per machine, not
     once per process)."""
     import time

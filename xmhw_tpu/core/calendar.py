@@ -119,18 +119,16 @@ def build_window_index(doy: np.ndarray, w: int, ndoy: int):
 
 
 def build_window_ranges(doy: np.ndarray, w: int, ndoy: int):
-    """Contiguous-range form of the window pooling table (Pallas layout).
+    """Contiguous-range form of the window pooling table (kernel layout).
 
     Each doy occurs at most once per calendar year (366-mapping and tstep
     numbering both guarantee this), so the pooled set for (doy, year) is
     ONE contiguous time range [t-w, t+w] clipped to the series — the form
-    a TPU kernel can DMA with a single dynamic slice per (doy, year)
-    instead of Z element gathers.
+    the percentile kernel (ops/pallas/doy_quantile.py) reads as
+    start + offset rows instead of a Z-wide gather table.
 
     Returns (starts (ndoy, NY) int32, lens (ndoy, NY) int32, NY, RMAX)
-    where RMAX = 2*w+1. Empty (doy, year) combinations have len 0. The
-    device series must be padded with RMAX trailing NaN rows so a fixed
-    RMAX-row slice at any start stays in bounds.
+    where RMAX = 2*w+1. Empty (doy, year) combinations have len 0.
     """
     doy = np.asarray(doy)
     T = len(doy)

@@ -1,6 +1,6 @@
 """Device-side climatology: windowed doy quantile/mean, feb29, smoothing.
 
-TPU-first redesign of the reference's per-cell dask pipeline
+Accelerator redesign of the reference's per-cell dask pipeline
 (window_roll -> groupby(doy).quantile/mean -> feb29 -> runavg;
 reference: xmhw/identify.py:184-270, 137-181). Instead of materializing an
 11x-length stacked series per cell and looping cells through a dask graph,
@@ -30,11 +30,12 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 
-
-_I32_MAX = jnp.int32(0x7FFFFFFF)
-_SIGN = jnp.int32(-0x80000000)
+# numpy scalars trace as literals, so kernels may close over them
+_I32_MAX = np.int32(0x7FFFFFFF)
+_SIGN = np.int32(-0x80000000)
 
 
 def _float_key(x):
@@ -42,10 +43,8 @@ def _float_key(x):
 
     The classic unsigned key u (flip sign bit for positives, bitwise-not
     negatives) is carried in the order-preserving signed form
-    r = bitcast_i32(u ^ 0x80000000): XLA's TPU backend mis-lowers some
-    fused uint32 comparisons (observed: tie-handling compare folding in
-    jit), and Mosaic has no unsigned reductions, so ALL device code uses
-    the signed form.
+    r = bitcast_i32(u ^ 0x80000000), so every device path (XLA and the
+    Pallas kernel) compares and reduces plain int32.
     """
     bits = lax.bitcast_convert_type(x.astype(jnp.float32), jnp.int32)
     # u = neg ? ~bits : bits | 0x80000000 ; r = u ^ 0x80000000
@@ -83,8 +82,8 @@ def _quantile_rank_frac(n, pctile, dt):
 def _select_quantile(vals, mask, pctile):
     """Linear-interpolation quantile via radix-select (sort-free).
 
-    XLA's comparator sort is the bottleneck of the pooled-percentile on
-    TPU; a 32-step binary search on the monotone int32 key space needs
+    A comparator sort is the costly way to the pooled percentile on an
+    accelerator; a 32-step binary search on the monotone int32 key space needs
     only counting passes over the pooled axis — ~100x less memory traffic
     than a full sort. Exactly equivalent to numpy's 'linear' method on the
     masked multiset: finds order statistics k and k+1, interpolates
@@ -179,7 +178,7 @@ def doy_clim(ts, gidx, pctile):
         svals, n = _masked_sort(vals, mask)
         thresh = _interp_quantile(svals, n, pctile)
     else:
-        # TPU path: sort-free radix-select on uint32 keys
+        # float32 path: sort-free radix-select on int32 keys
         n = jnp.sum(mask, axis=1)
         thresh = _select_quantile(vals, mask, pctile)
     ssum = jnp.sum(jnp.where(mask, vals, 0.0), axis=1)

@@ -1,6 +1,6 @@
 """Device-side event identification: vectorized run-length encoding.
 
-TPU-first redesign of the reference's per-cell pandas pipeline
+Accelerator redesign of the reference's per-cell pandas pipeline
 (mhw_filter -> join_gaps -> join_events;
 reference: xmhw/identify.py:273-479, 532-536). The pandas ffill/shift chain
 becomes a handful of cumulative max/min scans over the time axis, computed

@@ -1,6 +1,6 @@
 """Device-side event feature engine: segment reductions on (time, cell).
 
-TPU-first redesign of the reference's per-cell pandas groupby feature
+Accelerator redesign of the reference's per-cell pandas groupby feature
 engine (mhw_df -> agg_df -> properties -> onset_decline;
 reference: xmhw/features.py:22-295). The 30-output pandas groupby becomes
 scatter-based segment reductions keyed by (event slot, cell):
@@ -9,7 +9,7 @@ scatter-based segment reductions keyed by (event slot, cell):
   reference: features.py:44-68) are dense (T, C) elementwise ops;
 * sums/means/maxes are one scatter-add/scatter-max each; variances use the
   numerically stable two-pass form (mean first, then squared deviations)
-  to stay accurate in float32 on TPU (pandas computes in float64);
+  to stay accurate in float32 (pandas computes in float64);
 * first/last/argmax positions are scatter-min/max of day indices, matching
   pandas ``first``/``last`` (first non-NaN) and ``idxmax``/``np.argmax``
   (first max position) semantics (reference: features.py:114-152);

@@ -1,30 +1,27 @@
-"""Scatter-free event feature engine: prefix sums + one fused segmented scan.
+"""Scatter-free event feature engine: one fused segmented scan.
 
-Drop-in alternative to :mod:`xmhw_tpu.core.features` optimized for TPU.
-Measured on v5e, the scatter engine needs ~8 s per 2048-cell block (XLA
-scatters serialize), and (T, C)-shaped gathers cost ~0.5 s each; this
-implementation avoids BOTH. It exploits the fact that events are
-CONTIGUOUS runs along time (reference semantics: mhw_filter + join_gaps
-produce contiguous spans, xmhw/identify.py:415-479):
+Alternative to :mod:`xmhw_tpu.core.features` (scatter-based segment
+reductions) that needs no scatters and no sorts. It exploits the fact that
+events are CONTIGUOUS runs along time (reference semantics: mhw_filter +
+join_gaps produce contiguous spans, xmhw/identify.py:415-479):
 
-* sums/counts per event are prefix-cumsum differences, gathered ONLY at
-  the compact (K, C) start/end positions (small gathers are cheap);
+* every per-event reduction rides ONE segmented associative scan that
+  resets at each event start: the 17 sum/count channels, the running
+  max / first-argmax, and the first/last finite positions. The scan state
+  at an event's end row IS that event's result, so the table is read with
+  (K, C) gathers at the end positions. Sums restart at every event, so a
+  float32 total never carries the magnitude of the whole 40-year record
+  (a prefix-sum difference does, and loses the small event variances);
 * variances use the per-cell-shifted single-pass identity
-  sum((x-mu)^2) = sum((x-a)^2) - n*(mu-a)^2 with a = per-cell mean, so no
-  per-day broadcast of event means is needed and float32 stays accurate
-  (values are centered before squaring);
-* max / first-argmax / first-finite / last-finite all ride ONE fused
-  segmented associative scan (multi-value carrier, reset at run starts) —
-  measured faster than three separate scans;
-* the event table is compacted with a vectorized binary search on the
-  cumulative start-count (monotone, already computed by mhw_filter); end
-  positions are read from the per-day run geometry at the start day.
-  No sorts (an earlier top_k compaction cost ~88 ms / 4096 cells) and no
-  scatters anywhere.
+  sum((x-mu)^2) = sum((x-a)^2) - n*(mu-a)^2 with a = per-cell mean, so
+  values are centered before squaring;
+* the event table is compacted by two-level counting on the cumulative
+  start-count (monotone, already computed by mhw_filter); end positions
+  ride the same block gather.
 
 The public contract (outputs, NaN padding, reference formulas for
 onset/decline, reference: xmhw/features.py:22-295) is identical to
-features.detect_kernel — tests assert agreement with it on CPU float64.
+features.detect_kernel.
 """
 
 from __future__ import annotations
@@ -59,227 +56,29 @@ RANK_VARS = tuple(k for k in TABLE_VARS
                   if not any(x in k for x in ("event", "time", "index")))
 
 
-def _ckpt_comb(a, b, np_=17):
-    """The fused-scan combine (ops/pallas/detect_scan.py:_kernel comb),
-    replicated in XLA for checkpoint recombination. ``a``/``b`` are
-    state tuples: np_ sums + (v, i, prt, pma, sv, ct, ff, vff, lf, vlf,
-    fa, vfa, la, vla, reset)."""
-    ar, br = a[-1], b[-1]
-    brb = br != 0
-    out_sums = tuple(jnp.where(brb, bv, av + bv)
-                     for av, bv in zip(a[:np_], b[:np_]))
-    (av, ai, aprt, apma, asv, act, aff, avff, alf, avlf, afa, avfa,
-     ala, avla) = a[np_:np_ + 14]
-    (bv, bi, bprt, bpma, bsv, bct, bff, bvff, blf, bvlf, bfa, bvfa,
-     bla, bvla) = b[np_:np_ + 14]
-    tb = brb | (bv > av)
-    a_first = aff <= bff
-    a_first2 = afa <= bfa
-    return out_sums + (
-        jnp.where(tb, bv, av), jnp.where(tb, bi, ai),
-        jnp.where(tb, bprt, aprt), jnp.where(tb, bpma, apma),
-        jnp.where(brb, bsv, jnp.maximum(asv, bsv)),
-        jnp.where(brb, bct, jnp.maximum(act, bct)),
-        jnp.where(brb, bff, jnp.minimum(aff, bff)),
-        jnp.where(brb, bvff, jnp.where(a_first, avff, bvff)),
-        jnp.where(brb, blf, jnp.maximum(alf, blf)),
-        jnp.where(brb, bvlf, jnp.where(blf >= alf, bvlf, avlf)),
-        jnp.where(brb, bfa, jnp.minimum(afa, bfa)),
-        jnp.where(brb, bvfa, jnp.where(a_first2, avfa, bvfa)),
-        jnp.where(brb, bla, jnp.maximum(ala, bla)),
-        jnp.where(brb, bvla, jnp.where(bla >= ala, bvla, avla)),
-        ar | br,
-    )
-
-
-def _ckpt_recombine(CK, end_pos, ts, thresh_t, seas_t, anom_plus,
-                    anom_minus, day, is_start, shifts4, sb, T):
-    """Reconstruct the fused-scan state at each event end row from
-    sub-block checkpoints + the raw series.
-
-    ``CK`` (Tp/sb, 32, C) int32 (channel 31 = reset carrier, see
-    ops/pallas/detect_scan.NT_) holds the scan state at every sb-th row
-    (ops/pallas/detect_scan.py sb mode). For an end row e in sub-block
-    i = e // sb, state(e) = comb(CK[i-1], mini_scan(rows i*sb .. e)) —
-    the mini scan recomputes the carriers from the (T, C) inputs already
-    in HBM (7 small gathers of K*sb rows), so the kernel never writes
-    the full (Tp, 31, C) array. Returns (K, 31, C) int32 in the same
-    channel layout as a direct boundary gather.
-    """
-    K, C = end_pos.shape
-    nan = jnp.float32(jnp.nan)
-    neg = jnp.float32(-jnp.inf)
-    bigi = _I32(4 * T + 64)
-    a_rs, a_rt, a_sv, a_ma = shifts4
-
-    sbi = end_pos // sb
-    off = end_pos % sb
-
-    # ---- carry: previous checkpoint (or scan-initial state) -------------
-    Gc = jnp.take_along_axis(CK, jnp.maximum(sbi - 1, 0)[:, None, :],
-                             axis=0)  # (K, 31, C)
-    hasc = (sbi > 0)[:, None, :]
-
-    def cf(i, init):  # float channel with initial fallback
-        v = lax.bitcast_convert_type(Gc[:, i, :], jnp.float32)
-        return jnp.where(hasc[:, 0, :], v, init)
-
-    def ci(i, init):  # int channel
-        return jnp.where(hasc[:, 0, :], Gc[:, i, :], init)
-
-    carry = tuple(cf(i, jnp.float32(0.0)) for i in range(17)) + (
-        cf(17, neg), ci(20, _I32(0)), cf(29, nan), cf(30, nan),
-        cf(18, neg), cf(19, neg), ci(21, bigi), cf(25, nan),
-        ci(22, _I32(-1)), cf(26, nan), ci(23, bigi), cf(27, nan),
-        ci(24, _I32(-1)), cf(28, nan),
-        jnp.zeros((K, C), _I32),  # carry reset value is never read
-    )
-
-    # ---- mini carriers from the raw series ------------------------------
-    o = jnp.arange(sb, dtype=_I32)
-    rows = jnp.minimum(sbi[:, None, :] * sb + o[None, :, None],
-                       T - 1)  # (K, sb, C); rows past off are not read
-    rows2 = rows.reshape(K * sb, C)
-
-    def g(x, dtype=None):
-        out = jnp.take_along_axis(x, rows2, axis=0).reshape(K, sb, C)
-        return out if dtype is None else out.astype(dtype)
-
-    tsg = g(ts, jnp.float32)
-    thg = g(thresh_t, jnp.float32)
-    seg = g(seas_t, jnp.float32)
-    apg = g(anom_plus, jnp.float32)
-    amg = g(anom_minus, jnp.float32)
-    dayg = g(day.astype(jnp.int8)) != 0
-    sttg = g(is_start.astype(jnp.int8)) != 0
-    idx = rows
-
-    relSeas = jnp.where(dayg, tsg - seg, nan)
-    relThresh = jnp.where(dayg, tsg - thg, nan)
-    th_se = thg - seg
-    relTN = jnp.where(dayg, relThresh / th_se, nan)
-    severity = jnp.where(dayg, relSeas / -th_se, nan)
-    cats = jnp.floor(1.0 + relTN)
-    mabs = jnp.where(dayg, tsg, nan)
-    fin_rs = jnp.isfinite(relSeas)
-    fin_rt = jnp.isfinite(relThresh)
-    fin_sv = jnp.isfinite(severity)
-    fin_ma = jnp.isfinite(mabs)
-    fin_ct = jnp.isfinite(cats)
-
-    def sh(fin, x, a):
-        return jnp.where(fin, x - a.astype(jnp.float32)[None, None, :],
-                         0.0)
-
-    xs_rs = sh(fin_rs, relSeas, a_rs[0])
-    xs_rt = sh(fin_rt, relThresh, a_rt[0])
-    xs_sv = sh(fin_sv, severity, a_sv[0])
-    xs_ma = sh(fin_ma, mabs, a_ma[0])
-
-    apd = jnp.where(dayg, apg, nan)
-    amd = jnp.where(dayg, amg, nan)
-    f32 = jnp.float32
-    state = (
-        fin_rs.astype(f32), xs_rs, xs_rs * xs_rs,
-        fin_rt.astype(f32), xs_rt, xs_rt * xs_rt,
-        fin_sv.astype(f32), xs_sv, xs_sv * xs_sv,
-        fin_ma.astype(f32), xs_ma, xs_ma * xs_ma,
-        jnp.where(cats == 1.0, 1.0, 0.0).astype(f32),
-        jnp.where(cats == 2.0, 1.0, 0.0).astype(f32),
-        jnp.where(cats == 3.0, 1.0, 0.0).astype(f32),
-        jnp.where(cats >= 4.0, 1.0, 0.0).astype(f32),
-        fin_ct.astype(f32),
-        jnp.where(fin_rs, relSeas, neg),
-        idx,
-        relThresh,
-        mabs,
-        jnp.where(fin_sv, severity, neg),
-        jnp.where(fin_ct, cats, neg),
-        jnp.where(fin_rs, idx, bigi),
-        relSeas,
-        jnp.where(fin_rs, idx, _I32(-1)),
-        relSeas,
-        jnp.where(jnp.isfinite(apd), idx, bigi),
-        apd,
-        jnp.where(jnp.isfinite(amd), idx, _I32(-1)),
-        amd,
-        sttg.astype(_I32),
-    )
-    mini = lax.associative_scan(_ckpt_comb, state, axis=1)
-    picked = tuple(
-        jnp.take_along_axis(x, off[:, None, :], axis=1)[:, 0, :]
-        for x in mini)
-    out = _ckpt_comb(carry, picked)
-
-    def bc(x):
-        return lax.bitcast_convert_type(x, _I32)
-
-    msums = out[:17]
-    (mv, mi, mprt, mpma, msv, mct, mff, mvff, mlf, mvlf, mfa, mvfa,
-     mla, mvla, _) = out[17:]
-    return jnp.stack(
-        [bc(x) for x in msums]
-        + [bc(mv), bc(msv), bc(mct), mi, mff, mlf, mfa, mla,
-           bc(mvff), bc(mvlf), bc(mvfa), bc(mvla), bc(mprt), bc(mpma)],
-        axis=1)
+_TBK = 128  # rows per counting block of the two-level compaction
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("K", "min_duration", "join_gaps", "max_gap",
-                     "intermediate", "use_pallas_scan", "pallas_interpret",
-                     "day0_fillna_quirk", "pallas_sb", "tbk", "grp",
-                     "cnt_ct"),
+                     "intermediate", "day0_fillna_quirk"),
 )
 def detect_kernel(ts, th, se, doy_pos, K, min_duration=5, join_gaps=True,
-                  max_gap=2, intermediate=False, use_pallas_scan=False,
-                  pallas_interpret=False, day0_fillna_quirk=False,
-                  pallas_sb=0, tbk=128, grp=4, cnt_ct=True):
+                  max_gap=2, intermediate=False, day0_fillna_quirk=False):
     """Scan-based detection pipeline; same contract as
-    features.detect_kernel (see that docstring for parameters).
-
-    ``use_pallas_scan=True`` (float32, C % 128 == 0) routes the prefix
-    sums and the segmented scan through the one-pass Pallas kernel
-    (ops/pallas/detect_scan.py)."""
+    features.detect_kernel (see that docstring for parameters)."""
     T, C = ts.shape
     dt = ts.dtype
     nan = jnp.asarray(jnp.nan, dt)
     neg = jnp.asarray(-jnp.inf, dt)
-
-    # PAD ONCE at the top (Pallas path): every (T, C) intermediate
-    # below is born at the kernel's block multiple, so the kernel's
-    # per-input re-pads and the counting chain's pad+stack vanish (each
-    # standalone XLA pad copies the whole ~240 MB array; ~4.5 ms/block
-    # of the round-5 trace). Pad rows are NaN -> bthresh False -> never
-    # event days; positions (start/end) stay clipped to the REAL T.
-    Tq = T
-    if use_pallas_scan:
-        from ..ops.pallas.detect_scan import TB as _TBQ
-
-        Tq = -(-T // _TBQ) * _TBQ
-        if Tq != T:
-            ts = jnp.concatenate(
-                [ts, jnp.full((Tq - T, C), nan, dt)], axis=0)
-            doy_pos = jnp.concatenate(
-                [doy_pos, jnp.zeros((Tq - T,), doy_pos.dtype)])
-    bigi = _I32(4 * Tq + 64)
+    bigi = _I32(4 * T + 64)
 
     thresh_t = th[doy_pos]
     seas_t = se[doy_pos]
     bthresh = ts > thresh_t
-    if use_pallas_scan:
-        # streaming-RLE event identification (6 linear passes vs XLA's
-        # log-depth cummax/cummin lowering; bit-equal, tests assert it)
-        from ..ops.pallas.rle import pallas_mhw_filter
-
-        f = pallas_mhw_filter(
-            bthresh, min_duration=min_duration, join_gaps=join_gaps,
-            max_gap=max_gap, day0_fillna_quirk=day0_fillna_quirk,
-            interpret=pallas_interpret)
-    else:
-        f = mhw_filter(bthresh, min_duration=min_duration,
-                       join_gaps=join_gaps, max_gap=max_gap,
-                       day0_fillna_quirk=day0_fillna_quirk)
+    f = mhw_filter(bthresh, min_duration=min_duration, join_gaps=join_gaps,
+                   max_gap=max_gap, day0_fillna_quirk=day0_fillna_quirk)
     day = f["event_day"]
     is_start = f["is_start"]
     # raw per-cell count (may exceed K — callers detect table overflow
@@ -314,432 +113,136 @@ def detect_kernel(ts, th, se, doy_pos, K, min_duration=5, join_gaps=True,
     # ---- compaction geometry: two-level counting, no sort, no scatters ----
     # cumstart = slot+1 = cumsum(is_start) is monotone along time (already
     # computed by mhw_filter), so the start day of event k is the first t
-    # with cumstart >= k+1. A direct bisection needs ~14 strided gathers
-    # from the (T, C) array (measured ~150 ms / 4096 cells — TPU gathers
-    # along the major axis are latency-bound); instead count at two
-    # levels: (1) block-final samples (nbk, C) locate the 128-row block
-    # by a broadcast compare+sum, (2) ONE gather pulls each event's block
-    # and a second compare+sum finds the offset within it. Also replaces
-    # the earlier lax.top_k compaction (measured ~88 ms / 4096 cells).
+    # with cumstart >= k+1. Count at two levels: (1) block-final samples
+    # (nbk, C) locate the _TBK-row block by a broadcast compare+sum, (2)
+    # ONE gather pulls each event's block and a second compare+sum finds
+    # the offset within it. The event's end rides the same gather: the
+    # start row of event k is a day row, so ev_end there is its end.
     cumstart = f["slot"] + 1  # (T, C) monotone
     target = (lax.broadcasted_iota(_I32, (K, C), 0) + 1)  # k+1 per row
-
-    TBK = tbk
-    nbk = -(-Tq // TBK)
+    nbk = -(-T // _TBK)
     valid = (lax.broadcasted_iota(_I32, (K, C), 0) < n_valid[None, :])
-    if use_pallas_scan:
-        # END-COUNTER counting (round 5): locate event ENDS directly —
-        # cumend = #(ends at rows <= t) is pointwise from outputs the
-        # filter already has (merged runs are CONTIGUOUS day spans, so
-        # is_end = day & ~day_next and cumend = cumstart - day + is_end)
-        # and is monotone, so the same two-level counting yields end_pos
-        # with HALF the gathered bytes (no ev_end block riding along).
-        # The start position is NOT counted at all: the fused scan
-        # already carries first-finite-relSeas (= the event's start row,
-        # since the start day is an exceedance day) and the boundary
-        # gather at end rows brings it down for free. Replaces the
-        # cumstart+ev_end formulation (kept below for the XLA engine):
-        # -537->268 MB counting gather, no 2*TBK concat, no ev_end
-        # select-sum, and the RLE's backward ev_end pass dead-codes out
-        # of the fused program when `intermediate` is off.
-        di = day.astype(_I32)
-        ie = di * (1 - jnp.concatenate(
-            [di[1:], jnp.zeros((1, C), _I32)], axis=0))
-        cumend = cumstart - di + ie  # (Tq, C) monotone
+    evd = jnp.where(day, f["ev_end"], 0)
 
-        # channel-minor blocks (see cnt_ct below): contiguous per-(k,c)
-        # fetches, relayout glue on the small (K, C) outputs
-        if nbk * TBK != Tq:
-            cumend = jnp.concatenate(
-                [cumend,
-                 jnp.broadcast_to(cumend[-1:], (nbk * TBK - Tq, C))],
-                axis=0)
-        cb = cumend.reshape(nbk, TBK, C).transpose(0, 2, 1)
-        blk_final = cb[:, :, TBK - 1]  # (nbk, C)
-        bk = jnp.sum((blk_final[:, None, :] < target[None, :, :])
-                     .astype(_I32), axis=0,
-                     dtype=_I32)  # (K, C) block holding event k's end
-        blk_t = jnp.take_along_axis(
-            cb, jnp.clip(bk, 0, nbk - 1)[:, :, None],
-            axis=0)  # (K, C, TBK)
-        within = jnp.sum((blk_t < target[:, :, None]).astype(_I32),
-                         axis=2, dtype=_I32)
-        end_pos = jnp.minimum(bk * TBK + within, T - 1)
-        # `start` is read from the boundary gather's first-finite-
-        # relSeas channel after the scan (see below)
-    elif cnt_ct:
-        # ev_end rides the SAME block gather as the start counter: the
-        # start row of event k is a day row, so ev_end at that row is
-        # the event's end — selecting it from the gathered block by the
-        # already-computed within-offset replaces a separate
-        # (K, C)-indexed gather from the (T, C) array (measured
-        # ~8 ms / 4096 cells: XLA lowers the 2-D per-lane
-        # take_along_axis at ~0.25 GB/s, it is INDEX-bound) with one
-        # compare+sum over rows already in registers.
-        evd = jnp.where(day, f["ev_end"], 0)
-        # CHANNEL-MINOR counting (round-5 measured): blocks
-        # laid out (nbk, C, TBK) so the per-(k,c) block fetch is one
-        # contiguous 2*TBK-word run AND the gather's native output
-        # layout is the one the compare+sums consume directly. The
-        # C-minor formulation below ends up fetching contiguously too —
-        # but only after XLA re-lays the 536 MB stacked array on BOTH
-        # sides of the gather (~5.6 ms/4096-cell block of pure data
-        # formatting: copy.23/24 + pad_add + select_bitcast +
-        # fusion.227 in the round-5 trace); here the post-reduction
-        # relayouts act on (K, C) outputs (2 MB) instead.
-        def blockify(x):  # (Tq, C) -> (nbk, C, TBK)
-            if nbk * TBK != Tq:  # pad rows repeat the final row (the
-                # counter never drops below target; pad ev_end rows are
-                # only read for invalid, masked events)
-                x = jnp.concatenate(
-                    [x, jnp.broadcast_to(x[-1:], (nbk * TBK - Tq, C))],
-                    axis=0)
-            return x.reshape(nbk, TBK, C).transpose(0, 2, 1)
+    def blockify(x):  # (T, C) -> (nbk, C, _TBK)
+        if nbk * _TBK != T:  # pad rows repeat the final row (the counter
+            # never drops below target; pad ev_end rows are only read for
+            # invalid, masked events)
+            x = jnp.concatenate(
+                [x, jnp.broadcast_to(x[-1:], (nbk * _TBK - T, C))], axis=0)
+        return x.reshape(nbk, _TBK, C).transpose(0, 2, 1)
 
-        cb = blockify(cumstart)
-        eb = blockify(evd)
-        blocks_t = jnp.concatenate([cb, eb], axis=2)  # (nbk, C, 2*TBK)
-        blk_final = cb[:, :, TBK - 1]  # (nbk, C)
-        bk = jnp.sum((blk_final[:, None, :] < target[None, :, :])
-                     .astype(_I32), axis=0,
-                     dtype=_I32)  # (K, C) block holding event k
-        blk_t = jnp.take_along_axis(
-            blocks_t, jnp.clip(bk, 0, nbk - 1)[:, :, None],
-            axis=0)  # (K, C, 2*TBK)
-        within = jnp.sum((blk_t[:, :, :TBK] < target[:, :, None])
-                         .astype(_I32), axis=2, dtype=_I32)
-        start_pos = jnp.minimum(bk * TBK + within, T - 1)
-        start = jnp.where(valid, start_pos, 0)
-        woff = jnp.clip(within, 0, TBK - 1)[:, :, None]
-        end_pos = jnp.sum(
-            jnp.where(
-                lax.broadcasted_iota(_I32, (K, C, TBK), 2) == woff,
-                blk_t[:, :, TBK:], 0), axis=2,
-            dtype=_I32)  # pin: x64 would promote to int64
-    else:
-        evd = jnp.where(day, f["ev_end"], 0)
-        stacked = jnp.stack([cumstart, evd], axis=1)  # (Tq, 2, C)
-        if nbk * TBK != Tq:  # pad rows repeat the final row: counter
-            # never drops below target, and pad ev_end rows are only
-            # read for invalid (masked) events (top-padded inputs make
-            # this a no-op at the default TBK)
-            spad = jnp.concatenate(
-                [stacked,
-                 jnp.broadcast_to(stacked[-1:], (nbk * TBK - Tq, 2, C))],
-                axis=0)
-        else:
-            spad = stacked
-        blocks = spad.reshape(nbk, TBK, 2, C)
-        blk_final = blocks[:, TBK - 1, 0, :]  # (nbk, C)
-        bk = jnp.sum((blk_final[:, None, :] < target[None, :, :])
-                     .astype(_I32), axis=0,
-                     dtype=_I32)  # (K, C) block holding event k
-        blk = jnp.take_along_axis(
-            blocks, jnp.clip(bk, 0, nbk - 1)[:, None, None, :],
-            axis=0)  # (K, TBK, 2, C)
-        within = jnp.sum((blk[:, :, 0, :] < target[:, None, :])
-                         .astype(_I32), axis=1, dtype=_I32)
-        start_pos = jnp.minimum(bk * TBK + within, T - 1)
-        start = jnp.where(valid, start_pos, 0)
-        woff = jnp.clip(within, 0, TBK - 1)[:, None, :]
-        end_pos = jnp.sum(
-            jnp.where(lax.broadcasted_iota(_I32, (K, TBK, C), 1) == woff,
-                      blk[:, :, 1, :], 0), axis=1,
-            dtype=_I32)  # pin: x64 would promote to int64
+    cb = blockify(cumstart)
+    blocks_t = jnp.concatenate([cb, blockify(evd)], axis=2)  # (nbk,C,2TBK)
+    blk_final = cb[:, :, _TBK - 1]  # (nbk, C)
+    bk = jnp.sum((blk_final[:, None, :] < target[None, :, :])
+                 .astype(_I32), axis=0,
+                 dtype=_I32)  # (K, C) block holding event k
+    blk_t = jnp.take_along_axis(
+        blocks_t, jnp.clip(bk, 0, nbk - 1)[:, :, None],
+        axis=0)  # (K, C, 2*_TBK)
+    within = jnp.sum((blk_t[:, :, :_TBK] < target[:, :, None])
+                     .astype(_I32), axis=2, dtype=_I32)
+    start_pos = jnp.minimum(bk * _TBK + within, T - 1)
+    start = jnp.where(valid, start_pos, 0)
+    woff = jnp.clip(within, 0, _TBK - 1)[:, :, None]
+    end_pos = jnp.sum(
+        jnp.where(
+            lax.broadcasted_iota(_I32, (K, C, _TBK), 2) == woff,
+            blk_t[:, :, _TBK:], 0), axis=2,
+        dtype=_I32)  # pin: x64 would promote to int64
     end_pos = jnp.clip(end_pos, 0, T - 1)
     end = jnp.where(valid, end_pos, 0)
-    endp1 = end + 1
 
-    def at_end(x):
-        return jnp.take_along_axis(x, end_pos, axis=0)
+    def at(x, pos):
+        return jnp.take_along_axis(x, pos, axis=0)
 
-    # ---- ALL prefix sums in one stacked MXU blocked cumsum ----------------
-    # per-cell shift constants for numerically safe single-pass variance
-    def cell_shift(x, fin):
-        s = jnp.sum(jnp.where(fin, x, 0), axis=0, keepdims=True)
-        n = jnp.sum(fin, axis=0, keepdims=True)
-        return (s / jnp.maximum(n, 1)).astype(dt)
+    # ---- ONE fused segmented scan, reset at every event start ------------
+    # Off-event days contribute each channel's neutral element, so the
+    # state at an event's end row holds exactly that event's reductions.
+    # The four moment groups (relSeas, relThresh, severity, absolute)
+    # carry (count, mean, M2) and merge with Chan et al.'s pairwise
+    # update, which never subtracts two large sums. Channels are stacked
+    # into three arrays so each scan level is a handful of fused ops.
+    fins = (fin_rs, fin_rt, fin_sv, fin_ma)
+    vals = (relSeas, relThresh, severity, mabs)
+    F = jnp.stack(
+        [f.astype(dt) for f in fins]                          # 0-3 n
+        + [jnp.where(f, v, 0) for f, v in zip(fins, vals)]    # 4-7 mean
+        + [jnp.zeros_like(ts)] * 4                            # 8-11 M2
+        + [(day & c).astype(dt) for c in (dur_moderate, dur_strong,
+                                          dur_severe, dur_extreme)]
+        + [(fin_ct & day).astype(dt),                         # 16
+           jnp.where(day & fin_rs, relSeas, neg),             # 17 max
+           jnp.where(day & fin_sv, severity, neg),            # 18 max
+           jnp.where(day & fin_ct, cats, neg)],               # 19 max
+        axis=1)  # (T, 20, C)
+    idx = lax.broadcasted_iota(_I32, ts.shape, 0)
+    I = jnp.stack([
+        idx,                                     # first argmax of ch 17
+        jnp.where(day & fin_rs, idx, bigi),      # first finite relSeas
+        jnp.where(day & fin_rs, idx, _I32(-1)),  # last finite relSeas
+        jnp.where(fin_ap, idx, bigi),            # first finite anom+
+        jnp.where(fin_am, idx, _I32(-1)),        # last finite anom-
+    ], axis=1)  # (T, 5, C)
 
-    a_rs = cell_shift(relSeas, fin_rs)
-    a_rt = cell_shift(relThresh, fin_rt)
-    a_sv = cell_shift(severity, fin_sv)
-    a_ma = cell_shift(mabs, fin_ma)
+    def comb(a, b):
+        aF, aI, ar = a
+        bF, bI, br = b
+        na, nb = aF[:, 0:4], bF[:, 0:4]
+        n = na + nb
+        d = bF[:, 4:8] - aF[:, 4:8]
+        w = nb / jnp.maximum(n, 1.0)
+        take_b = br[:, 0] | (bF[:, 17] > aF[:, 17])
+        Fm = jnp.concatenate([
+            n, aF[:, 4:8] + d * w,
+            aF[:, 8:12] + bF[:, 8:12] + d * d * na * w,
+            aF[:, 12:17] + bF[:, 12:17],
+            jnp.where(take_b, bF[:, 17], aF[:, 17])[:, None],
+            jnp.maximum(aF[:, 18:20], bF[:, 18:20])], axis=1)
+        Im = jnp.concatenate([
+            jnp.where(take_b, bI[:, 0], aI[:, 0])[:, None],
+            jnp.minimum(aI[:, 1:2], bI[:, 1:2]),
+            jnp.maximum(aI[:, 2:3], bI[:, 2:3]),
+            jnp.minimum(aI[:, 3:4], bI[:, 3:4]),
+            jnp.maximum(aI[:, 4:5], bI[:, 4:5])], axis=1)
+        return (jnp.where(br, bF, Fm), jnp.where(br, bI, Im), ar | br)
 
-    def shifted(x, fin, a):
-        return jnp.where(fin, x - a, 0).astype(dt)
+    Fs, Is, _ = lax.associative_scan(comb, (F, I, is_start[:, None, :]),
+                                     axis=0)
+    ends = end_pos[:, None, :]
+    Fe = jnp.take_along_axis(Fs, ends, axis=0)  # (K, 20, C)
+    Ie = jnp.take_along_axis(Is, ends, axis=0)  # (K, 5, C)
+    e_max_rs, e_max_sv, e_max_ct = Fe[:, 17], Fe[:, 18], Fe[:, 19]
+    peak, i_rs_first, i_rs_last, i_ap_first, i_am_last = (
+        Ie[:, i] for i in range(5))
 
-    xs_rs = shifted(relSeas, fin_rs, a_rs)
-    xs_rt = shifted(relThresh, fin_rt, a_rt)
-    xs_sv = shifted(severity, fin_sv, a_sv)
-    xs_ma = shifted(mabs, fin_ma, a_ma)
+    def stats_from(g):
+        n, mean, m2 = Fe[:, g], Fe[:, 4 + g], Fe[:, 8 + g]
+        std = jnp.sqrt(jnp.maximum(m2, 0.0) / jnp.maximum(n - 1.0, 1.0))
+        return (n, jnp.where(n > 0, n * mean, nan),
+                jnp.where(n > 0, mean, nan), jnp.where(n > 1, std, nan))
 
-    if use_pallas_scan:
-        from ..ops.pallas.detect_scan import fused_detect_scans
-
-        shifts = jnp.concatenate([a_rs, a_rt, a_sv, a_ma], axis=0)
-        if pallas_sb:
-            # checkpoint mode: the kernel writes only every sb-th state
-            # row ((Tp/sb, 31, C) instead of (Tp, 31, C)); the state at
-            # each event end is recombined from the checkpoint before
-            # its sub-block plus a mini-scan over the raw series rows.
-            # MEASURED SLOWER on v5e (sb=8: 754 ms vs 90 ms/4096-cell
-            # block): the (K*sb, C) row gathers and the 31-carrier XLA
-            # tuple scan cost far more than the saved write — XLA TPU
-            # gathers run ~2.6 GB/s vs the kernel's ~196 GB/s stores.
-            # Kept (correct, tested) as the recombination blueprint for
-            # a future in-kernel compaction; default stays 0.
-            CK = fused_detect_scans(
-                ts, thresh_t, seas_t, day,
-                is_start, shifts, interpret=pallas_interpret,
-                sb=pallas_sb)
-            G31 = _ckpt_recombine(
-                CK, end_pos, ts, thresh_t, seas_t, anom_plus,
-                anom_minus, day, is_start, (a_rs, a_rt, a_sv, a_ma),
-                pallas_sb, Tq)  # padded length: sentinel (bigi) and
-            # row clips must match the kernel's padded index space
-        else:
-            # FOLD: the scan combine is an IDENTITY on non-event rows
-            # (every carrier's contribution from a day=False row is its
-            # neutral element), and after an event ends at row e the
-            # next segment reset is at least maxGap+2 rows away
-            # (non-joined events are separated by > maxGap non-event
-            # days; joinGaps=False still guarantees one). So state rows
-            # e .. e+fold-1 are BIT-IDENTICAL to row e for any
-            # fold <= maxGap+2 — the kernel only needs to write every
-            # fold-th state row ((Tp/fold, 31, C): 4x less HBM write at
-            # the defaults, the dominant cost of the detect step) and
-            # the boundary gather reads row e // fold of the folded
-            # array. This reuses the sb checkpoint machinery but needs
-            # NO recombination (the recombination is what made
-            # pallas_sb mode 8x slower).
-            window = (max_gap + 2) if join_gaps else 2
-            fold = 1
-            while fold * 2 <= min(window, 128):
-                fold *= 2
-            # END-AWARE LATCH on top of the fold: consecutive event ends
-            # are >= sep rows apart (a finished event is followed by
-            # > maxGap non-event days when joining — else >= 1 — and the
-            # next event spans >= minDuration days), so groups of
-            # fold*latch <= sep rows hold at most one end each and the
-            # kernel can emit ONE latched row per group (see
-            # ops/pallas/detect_scan.py). 8 at the defaults: HALVES the
-            # scan kernel's dominant HBM write vs fold=4 alone.
-            sep = min_duration + (max_gap + 1 if join_gaps else 1)
-            latch = 1
-            while (fold > 1 and fold * latch * 2 <= min(sep, 128)
-                   and (128 // fold) % (latch * 2) == 0):
-                latch *= 2
-            S31 = fused_detect_scans(
-                ts, thresh_t, seas_t, day,
-                is_start, shifts, interpret=pallas_interpret,
-                sb=fold if fold > 1 else 0, latch=latch)
-            # the segmented-sum value at an event's end row IS the event
-            # total, and the min/max/argmax channels plus their value
-            # payloads ride the same array: ONE boundary gather serves
-            # all 31 channels — no (T, C) series is ever gathered at
-            # event positions on this path.
-            #
-            # GROUPED FETCH: XLA's TPU gather emitter is index-bound on
-            # per-(k,c) fetches of NT C-strided words (~19.3 ms/block,
-            # ~3.3 GB/s effective); fetching GRP whole folded rows per
-            # index — a flat GRP*128 B contiguous run in the (rows/GRP,
-            # GRP*32, C) pure view — rides its fast slice path instead,
-            # and one in-register compare+sum picks the right row.
-            # Round-5 on-chip sweep (tools/gather_tune.py, detect step
-            # standalone): GRP=1 67.9 / 2 64.2 / 4 61.7 / 8 64.3 ms —
-            # GRP=4 balances the per-index floor against the extra
-            # fetched bytes and the select-sum width. Requires the
-            # 32-channel (power-of-two) kernel output. The counting
-            # gather is likewise at its optimum: TBK=64 is +1 ms and
-            # TBK=32 is 1.9x (the (nbk, K, C) block-locate compare+sum
-            # quadruples), so counting gathers are not split further.
-            foldl = fold * latch
-            gpos = end_pos // foldl if foldl > 1 else end_pos
-            nrows, NTK = S31.shape[0], S31.shape[1]
-            GRP = grp
-            if GRP > 1 and nrows % GRP == 0:
-                Y = S31.reshape(nrows // GRP, GRP * NTK, C)
-                G = jnp.take_along_axis(
-                    Y, (gpos // GRP)[:, None, :], axis=0)
-                Gr = G.reshape(K, GRP, NTK, C)
-                G31 = jnp.sum(
-                    jnp.where(
-                        lax.broadcasted_iota(
-                            jnp.int32, (K, GRP, 1, C), 1)
-                        == (gpos % GRP)[:, None, None, :], Gr, 0),
-                    axis=1, dtype=jnp.int32)  # keep bit patterns
-                # 32-bit under x64 (sum would promote to int64)
-            else:
-                G31 = jnp.take_along_axis(S31, gpos[:, None, :], axis=0)
-        R = lax.bitcast_convert_type(G31[:, :17, :], jnp.float32)
-        pl_scan = G31[:, 17:, :]
-    else:
-        pl_scan = None
-        sources = [
-            fin_rs.astype(dt), xs_rs, xs_rs * xs_rs,
-            fin_rt.astype(dt), xs_rt, xs_rt * xs_rt,
-            fin_sv.astype(dt), xs_sv, xs_sv * xs_sv,
-            fin_ma.astype(dt), xs_ma, xs_ma * xs_ma,
-            jnp.where(day, dur_moderate, False).astype(dt),
-            jnp.where(day, dur_strong, False).astype(dt),
-            jnp.where(day, dur_severe, False).astype(dt),
-            jnp.where(day, dur_extreme, False).astype(dt),
-            (fin_ct & day).astype(dt),
-        ]
-        from ..ops.scans import mxu_cumsum
-
-        # (T, NS, C) layout measured fastest on TPU for the cumsum + the
-        # broadcast boundary gathers (vs (T,C,NS) and (NS,T,C))
-        S = jnp.stack(sources, axis=1)  # (T, NS, C)
-        NS = S.shape[1]
-        P = jnp.concatenate(
-            [jnp.zeros((1, NS, C), S.dtype), mxu_cumsum(S, axis=0)],
-            axis=0)
-        # ONE batched gather per boundary (indices broadcast over
-        # channels); event totals are prefix differences
-        hi = jnp.take_along_axis(P, endp1[:, None, :], axis=0)
-        lo_ = jnp.take_along_axis(P, start[:, None, :], axis=0)
-        R = hi - lo_  # (K, NS, C)
-
-    def stats_from(i, a):
-        n = R[:, i, :]
-        s_sh = R[:, i + 1, :]
-        ss_sh = R[:, i + 2, :]
-        mean_sh = jnp.where(n > 0, s_sh / jnp.maximum(n, 1.0), nan)
-        var = (ss_sh - n * mean_sh * mean_sh) / jnp.maximum(n - 1.0, 1.0)
-        std = jnp.sqrt(jnp.maximum(var, 0.0))
-        std = jnp.where(n > 1, std, nan)
-        mean = jnp.where(n > 0, mean_sh + a[0][None, :], nan)
-        total = jnp.where(n > 0, s_sh + n * a[0][None, :], nan)
-        return n, total, mean, std
-
-    n_rs, sum_rs, mean_rs, std_rs = stats_from(0, a_rs)
-    n_rt, sum_rt, mean_rt, std_rt = stats_from(3, a_rt)
-    n_sv, sum_sv, mean_sv, std_sv = stats_from(6, a_sv)
-    n_ma, sum_ma, mean_ma, std_ma = stats_from(9, a_ma)
-    dur_mod, dur_str, dur_sev, dur_ext = (R[:, i, :] for i in
-                                          range(12, 16))
-    n_ct = R[:, 16, :]
-
-    # ---- ONE fused segmented scan: max/argmax + first/last finite --------
-    if use_pallas_scan:
-        # segmented scan ran inside the Pallas kernel; already gathered
-        G = pl_scan
-
-        def _f32(i):
-            return lax.bitcast_convert_type(G[:, i, :], jnp.float32)
-
-        e_max_rs, e_max_sv, e_max_ct = _f32(0), _f32(1), _f32(2)
-        peak = G[:, 3, :]
-        i_rs_first, i_rs_last = G[:, 4, :], G[:, 5, :]
-        i_ap_first, i_am_last = G[:, 6, :], G[:, 7, :]
-        # the event's start row IS its segment's first finite relSeas:
-        # segments reset at is_start, and the start day is an
-        # exceedance day (ts > thresh, thresh/seas finite there), so
-        # relSeas is finite at it. Reading it from the gathered scan
-        # state replaces the second (cumstart) counting pass.
-        start_pos = jnp.clip(i_rs_first, 0, T - 1)
-        start = jnp.where(valid, start_pos, 0)
-    else:
-        idx = lax.broadcasted_iota(_I32, ts.shape, 0)
-        carrier = (
-            jnp.where(day & fin_rs, relSeas, neg),   # relSeas running max
-            idx,                                     # its first argmax
-            jnp.where(day & fin_sv, severity, neg),  # severity max
-            jnp.where(day & fin_ct, cats, neg),      # cats max
-            jnp.where(day & fin_rs, idx, bigi),      # first finite relSeas
-            jnp.where(day & fin_rs, idx, _I32(-1)),  # last finite relSeas
-            jnp.where(fin_ap, idx, bigi),            # first finite anom+
-            jnp.where(fin_am, idx, _I32(-1)),        # last finite anom-
-            is_start,                                # segment reset
-        )
-
-        def comb(a, b):
-            av, ai, asv, act, aff, alf, afa, ala, ar = a
-            bv, bi, bsv, bct, bff, blf, bfa, bla, br = b
-            take_b = br | (bv > av)
-            return (
-                jnp.where(take_b, bv, av),
-                jnp.where(take_b, bi, ai),
-                jnp.where(br, bsv, jnp.maximum(asv, bsv)),
-                jnp.where(br, bct, jnp.maximum(act, bct)),
-                jnp.where(br, bff, jnp.minimum(aff, bff)),
-                jnp.where(br, blf, jnp.maximum(alf, blf)),
-                jnp.where(br, bfa, jnp.minimum(afa, bfa)),
-                jnp.where(br, bla, jnp.maximum(ala, bla)),
-                ar | br,
-            )
-
-        (dmax_rs, dpeak, dmax_sv, dmax_ct, dff_rs, dlf_rs, dff_ap,
-         dlf_am, _) = lax.associative_scan(comb, carrier, axis=0)
-
-        if dt == jnp.float32:
-            # one sliced gather for all scan outputs (bitcast floats to
-            # int32 so the stack is homogeneous; bit patterns survive)
-            scan_stack = jnp.stack([
-                lax.bitcast_convert_type(dmax_rs, _I32),
-                lax.bitcast_convert_type(dmax_sv, _I32),
-                lax.bitcast_convert_type(dmax_ct, _I32),
-                dpeak, dff_rs, dlf_rs, dff_ap, dlf_am,
-            ], axis=1)  # (T, 8, C)
-            G = jnp.take_along_axis(scan_stack, end_pos[:, None, :],
-                                    axis=0)
-
-            def _f32(i):
-                return lax.bitcast_convert_type(G[:, i, :], jnp.float32)
-
-            e_max_rs, e_max_sv, e_max_ct = _f32(0), _f32(1), _f32(2)
-            peak = G[:, 3, :]
-            i_rs_first, i_rs_last = G[:, 4, :], G[:, 5, :]
-            i_ap_first, i_am_last = G[:, 6, :], G[:, 7, :]
-        else:
-            # float64 parity path (CPU): plain per-array gathers
-            e_max_rs = at_end(dmax_rs)
-            e_max_sv = at_end(dmax_sv)
-            e_max_ct = at_end(dmax_ct)
-            peak = at_end(dpeak)
-            i_rs_first = at_end(dff_rs)
-            i_rs_last = at_end(dlf_rs)
-            i_ap_first = at_end(dff_ap)
-            i_am_last = at_end(dlf_am)
+    n_rs, sum_rs, mean_rs, std_rs = stats_from(0)
+    n_rt, sum_rt, mean_rt, std_rt = stats_from(1)
+    n_sv, sum_sv, mean_sv, std_sv = stats_from(2)
+    n_ma, sum_ma, mean_ma, std_ma = stats_from(3)
+    dur_mod, dur_str, dur_sev, dur_ext = (Fe[:, i] for i in range(12, 16))
+    n_ct = Fe[:, 16]
 
     max_rs = jnp.where(valid & (n_rs > 0), e_max_rs, nan)
     max_sv = jnp.where(valid & (n_sv > 0), e_max_sv, nan)
     max_ct = jnp.where(valid & (n_ct > 0), e_max_ct, nan)
 
-    if use_pallas_scan:
-        # value payloads rode the kernel's scan (channels 8-13 of the
-        # post-17 slice): no series gathers needed
-        def _pay(i, ok):
-            v = lax.bitcast_convert_type(pl_scan[:, 8 + i, :],
-                                         jnp.float32)
-            return jnp.where(valid & ok, v, nan)
+    def _val(x, pos, ok):
+        return jnp.where(valid & ok, at(x, jnp.clip(pos, 0, T - 1)), nan)
 
-        relS_first = _pay(0, i_rs_first < bigi)
-        relS_last = _pay(1, i_rs_last >= 0)
-        anom_first = _pay(2, i_ap_first < bigi)
-        anom_last = _pay(3, i_am_last >= 0)
-        int_max_relT = _pay(4, n_rs > 0)
-        int_max_abs = _pay(5, n_rs > 0)
-    else:
-        # one sliced gather for the six value lookups: stack sources,
-        # then gather each column's slice at its own position
-        val_stack = jnp.stack([relSeas, relSeas, anom_plus, anom_minus,
-                               relThresh, mabs], axis=1)  # (T, 6, C)
-        pos_stack = jnp.stack([i_rs_first, i_rs_last, i_ap_first,
-                               i_am_last, peak, peak], axis=1)  # (K,6,C)
-        V = jnp.take_along_axis(val_stack,
-                                jnp.clip(pos_stack, 0, T - 1), axis=0)
-
-        def _val(i, ok):
-            return jnp.where(valid & ok, V[:, i, :], nan)
-
-        relS_first = _val(0, i_rs_first < bigi)
-        relS_last = _val(1, i_rs_last >= 0)
-        anom_first = _val(2, i_ap_first < bigi)
-        anom_last = _val(3, i_am_last >= 0)
-        int_max_relT = _val(4, n_rs > 0)
-        int_max_abs = _val(5, n_rs > 0)
+    relS_first = _val(relSeas, i_rs_first, i_rs_first < bigi)
+    relS_last = _val(relSeas, i_rs_last, i_rs_last >= 0)
+    anom_first = _val(anom_plus, i_ap_first, i_ap_first < bigi)
+    anom_last = _val(anom_minus, i_am_last, i_am_last >= 0)
+    int_max_relT = _val(relThresh, peak, n_rs > 0)
+    int_max_abs = _val(mabs, peak, n_rs > 0)
 
     # ---- closed-form properties (reference: features.py:161-295) ----------
     startf = jnp.where(valid, start, 0).astype(dt)
@@ -819,6 +322,4 @@ def detect_kernel(ts, th, se, doy_pos, K, min_duration=5, join_gaps=True,
             "duration_extreme": dur_extreme & day,
             "mabs": mabs,
         }
-        if Tq != T:  # drop the top pad from the (Tq, C) intermediates
-            inter = {k: v[:T] for k, v in inter.items()}
     return table, n_events, inter

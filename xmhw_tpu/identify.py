@@ -1,7 +1,7 @@
 """Reference-style helper module: ``from xmhw_tpu.identify import ...``
 mirrors the reference's ``xmhw.identify`` surface (reference:
 xmhw/identify.py) with the same names and semantics, implemented on the
-TPU-native core. Functions operating on labeled arrays take/return
+device core. Functions operating on labeled arrays take/return
 :class:`xmhw_tpu.DataArray`.
 """
 
@@ -76,7 +76,7 @@ def runavg(ts: DataArray, w: int):
 
 def window_roll_index(ts: DataArray, w: int, tdim: str = "time",
                       keep_tstep: bool = False):
-    """TPU-native replacement for the reference's window_roll
+    """Device replacement for the reference's window_roll
     (identify.py:184-209): instead of materializing an 11x-length stacked
     series, return the static (ndoy, Z) gather table of pooled time
     indices (-1 padded). ``ts[gidx[d]]`` reproduces the pooled multiset

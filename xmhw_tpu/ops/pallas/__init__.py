@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for hot paths."""
+"""Pallas GPU kernels for hot paths."""

@@ -1,23 +1,18 @@
-"""Pallas TPU kernel: fused window-pool percentile + mean climatology.
+"""Pallas GPU kernel (Triton route): window-pool percentile + mean.
 
 The XLA path (core/clim.doy_clim) materializes the pooled tensor
-(ndoy, Z, C) in HBM (~2.6 GB at 4096 cells / 40 years) and runs 33
-counting passes over it. This kernel keeps each 128-lane cell tile's FULL
-time series resident in VMEM (~7.5 MB for 40 years) and never touches HBM
-again: per doy it DMAs the pooled windows as NY contiguous RMAX-row
-slices (see core.calendar.build_window_ranges) into a VMEM scratch pool,
-then runs the same radix-select percentile + masked mean entirely
-on-chip. HBM traffic drops from ~90 GB to one read of the series.
+(ndoy, Z, C) in device memory (~2.7 GB at 4096 cells / 40 years) and makes
+33 counting passes over it. Here one program owns one (doy, cell-tile)
+pool: it gathers the pooled rows straight from the (T, C) series into
+registers, runs the radix-select percentile and the masked mean on them,
+and writes one output row segment. Each series row is read by the ~11
+doys whose windows cover it; with doys varying fastest in the launch
+order, those reads hit L2.
 
-Semantics identical to doy_clim (linear-interpolation percentile on the
-NaN-dropped pooled multiset, reference: xmhw/identify.py:184-270);
-asserted equal in tests (interpret mode on CPU, compiled on TPU).
-
-Two kernel variants: ``_kernel`` (one doy per outer iteration) and
-``_kernel_batched`` (G doys per iteration, default G=8) — the batched
-variant cuts the scalar-loop iteration count by G and measured 5.9x
-faster on v5e (122 -> 21 ms per 4096-cell block) with bit-identical
-outputs.
+Semantics identical to doy_clim's float32 path (linear-interpolation
+percentile on the NaN-dropped pooled multiset, reference:
+xmhw/identify.py:184-270): the selected order statistics are exact, so
+thresh is bit-equal; seas sums in another order (float32 rounding).
 """
 
 from __future__ import annotations
@@ -26,358 +21,106 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-LANES = 128
+from ...core.clim import (_I32_MAX, _float_key, _key_to_float,
+                          _quantile_rank_frac)
 
+# Tests set this to run the kernel through the Pallas interpreter on the
+# CPU; nothing else does.
+INTERPRET = False
 
-def _round_up(x, m):
-    return -(-x // m) * m
-
-
-def _kernel(starts_ref, lens_ref, ts_ref, th_ref, se_ref, pool,
-            *, ndoy, ny, rmax, zpad, pctile):
-    big = jnp.uint32(0xFFFFFFFF)
-    pctile_int = int(pctile) if float(pctile).is_integer() else None
-
-    # NaN-fill the pool once; per-doy writes cover only ny*rmax rows
-    pool[:] = jnp.full((zpad, LANES), jnp.nan, jnp.float32)
-
-    def per_doy(d, _):
-        def per_year(y, _):
-            s = starts_ref[d * ny + y]
-            ln = lens_ref[d * ny + y]
-            chunk = ts_ref[pl.ds(s, rmax), :]
-            row = lax.broadcasted_iota(jnp.int32, (rmax, LANES), 0)
-            pool[pl.ds(y * rmax, rmax), :] = jnp.where(
-                row < ln, chunk, jnp.nan)
-            return 0
-
-        lax.fori_loop(0, ny, per_year, 0)
-
-        vals = pool[:]
-        mask = jnp.isfinite(vals)
-        # all per-lane vectors stay 2D (1, LANES) for TPU tiling
-        ni = jnp.sum(mask.astype(jnp.int32), axis=0, keepdims=True)
-        nf = ni.astype(jnp.float32)
-
-        # monotone keys. Mosaic has no unsigned reductions/compares, so
-        # carry the order-preserving SIGNED form rkey = u ^ 0x80000000
-        # (bitcast int32): unsigned order on u == signed order on rkey.
-        bits = lax.bitcast_convert_type(vals, jnp.uint32)
-        neg = bits >> 31
-        ukey = jnp.where(neg.astype(bool), ~bits,
-                         bits | jnp.uint32(0x80000000))
-        ukey = jnp.where(mask, ukey, big)
-        rkey = lax.bitcast_convert_type(
-            ukey ^ jnp.uint32(0x80000000), jnp.int32)
-        imax = jnp.int32(0x7FFFFFFF)  # signed form of the masked sentinel
-
-        # exact int32 rank/fraction for integral pctile (float32
-        # positions can floor to the adjacent rank — ADVICE r1)
-        if pctile_int is not None:
-            num = (ni - 1) * jnp.int32(pctile_int)
-            k = jnp.maximum(num // 100, 0)
-            frac = (jnp.maximum(num - k * 100, 0).astype(jnp.float32)
-                    * jnp.float32(0.01))
-        else:
-            pos = jnp.float32(pctile / 100.0) * (nf - 1.0)
-            k = jnp.maximum(jnp.floor(pos), 0.0).astype(jnp.int32)
-            frac = pos - k.astype(jnp.float32)
-
-        def _signed(u):
-            return lax.bitcast_convert_type(
-                u ^ jnp.uint32(0x80000000), jnp.int32)
-
-        def bit_iter(i, lo):
-            cand = lo | (jnp.uint32(1) << (31 - i).astype(jnp.uint32))
-            cnt = jnp.sum((rkey < _signed(cand)).astype(jnp.int32),
-                          axis=0, keepdims=True)
-            return jnp.where(cnt <= k, cand, lo)
-
-        lo = lax.fori_loop(0, 32, bit_iter,
-                           jnp.zeros((1, LANES), jnp.uint32))
-        rlo = _signed(lo)
-
-        def to_float(u):
-            b = jnp.where(u >= jnp.uint32(0x80000000),
-                          u & jnp.uint32(0x7FFFFFFF), ~u)
-            return lax.bitcast_convert_type(b, jnp.float32)
-
-        def r_to_float(r):
-            u = lax.bitcast_convert_type(r, jnp.uint32) ^ jnp.uint32(
-                0x80000000)
-            return to_float(u)
-
-        vk = to_float(lo)
-        cnt_le = jnp.sum((rkey <= rlo).astype(jnp.int32), axis=0,
-                         keepdims=True)
-        gt = jnp.where(rkey > rlo, rkey, imax)
-        hik = jnp.min(gt, axis=0, keepdims=True)
-        vk1 = jnp.where(cnt_le > k + 1, vk,
-                        jnp.where(hik != imax, r_to_float(hik), vk))
-        th = vk + frac * (vk1 - vk)
-
-        ssum = jnp.sum(jnp.where(mask, vals, 0.0), axis=0, keepdims=True)
-        seas = ssum / jnp.maximum(nf, 1.0)
-
-        nanv = jnp.float32(jnp.nan)
-        th_ref[pl.ds(d, 1), :] = jnp.where(nf > 0, th, nanv)
-        se_ref[pl.ds(d, 1), :] = jnp.where(nf > 0, seas, nanv)
-        return 0
-
-    lax.fori_loop(0, ndoy, per_doy, 0)
+# cells per program: the pool of next_pow2(ny*rmax) x BLOCK_C float32
+# values (512 x 16 at 40 years) lives in the registers of 4 warps
+BLOCK_C = 16
+NUM_WARPS = 4
 
 
-def _kernel_batched(starts_ref, lens_ref, ts_ref, th_ref, se_ref, pool,
-                    *, ndoy, ny, rmax, zpad, pctile, G):
-    """G-doy batched variant of ``_kernel``.
+def _next_pow2(n):
+    return 1 << max(int(n) - 1, 0).bit_length()
 
-    The single-doy kernel is scalar-loop bound: 366*40 pool-fill
-    iterations + 366*32 radix iterations of small (zpad, 128) vector
-    ops. Batching G doys per outer iteration (pool (G*zpad, LANES),
-    bodies unrolled over g) cuts the iteration count by G while keeping
-    identical per-doy arithmetic — results are bit-equal to the
-    single-doy kernel (asserted in tests).
-    """
-    big = jnp.uint32(0xFFFFFFFF)
-    imax = jnp.int32(0x7FFFFFFF)
-    pctile_int = int(pctile) if float(pctile).is_integer() else None
-    nblk = -(-ndoy // G)
 
-    pool[:] = jnp.full((G * zpad, LANES), jnp.nan, jnp.float32)
+def _kernel(starts_ref, lens_ref, ts_ref, th_ref, se_ref, *, T, C, ny,
+            rmax, zp, bc, pctile):
+    d = pl.program_id(0)
+    c0 = pl.program_id(1) * bc
 
-    def _signed(u):
-        return lax.bitcast_convert_type(
-            u ^ jnp.uint32(0x80000000), jnp.int32)
+    # pool row z <- window offset r of year y (z = y*rmax + r)
+    z = lax.broadcasted_iota(jnp.int32, (zp,), 0)
+    y = z // rmax
+    r = z - y * rmax
+    z_ok = z < ny * rmax
+    tab = d * ny + jnp.minimum(y, ny - 1)
+    start = plgpu.load(starts_ref.at[tab], mask=z_ok, other=0)
+    ln = plgpu.load(lens_ref.at[tab], mask=z_ok, other=0)
+    row_ok = z_ok & (r < ln)
+    rows = jnp.clip(start + r, 0, T - 1)
+    cols = c0 + lax.broadcasted_iota(jnp.int32, (bc,), 0)
+    col_ok = cols < C
+    vals = plgpu.load(ts_ref.at[rows[:, None],
+                                jnp.minimum(cols, C - 1)[None, :]],
+                      mask=row_ok[:, None] & col_ok[None, :],
+                      other=jnp.nan)  # (zp, bc)
 
-    def to_float(u):
-        b = jnp.where(u >= jnp.uint32(0x80000000),
-                      u & jnp.uint32(0x7FFFFFFF), ~u)
-        return lax.bitcast_convert_type(b, jnp.float32)
+    mask = jnp.isfinite(vals)
+    n = jnp.sum(mask, axis=0, dtype=jnp.int32)  # (bc,)
+    k, frac = _quantile_rank_frac(n, pctile, jnp.float32)
+    key = jnp.where(mask, _float_key(vals), _I32_MAX)
 
-    def per_block(bi, _):
-        d0 = bi * G
+    # greedy MSB-first bisection on the signed key domain (see
+    # core.clim._select_quantile): bit b of lo is still clear, except the
+    # sign bit of the start value, so XOR sets the unsigned bit b
+    def bit(i, lo):
+        cand = lo ^ lax.shift_left(jnp.int32(1),
+                                   (31 - i).astype(jnp.int32))
+        cnt = jnp.sum(key < cand[None, :], axis=0, dtype=jnp.int32)
+        return jnp.where(cnt <= k, cand, lo)
 
-        def per_year(y, _):
-            for g in range(G):
-                s = starts_ref[(d0 + g) * ny + y]
-                ln = lens_ref[(d0 + g) * ny + y]
-                chunk = ts_ref[pl.ds(s, rmax), :]
-                row = lax.broadcasted_iota(jnp.int32, (rmax, LANES), 0)
-                pool[pl.ds(g * zpad + y * rmax, rmax), :] = jnp.where(
-                    row < ln, chunk, jnp.nan)
-            return 0
+    lo = lax.fori_loop(0, 32, bit,
+                       jnp.full((bc,), -0x80000000, jnp.int32))
+    vk = _key_to_float(lo)
+    cnt_le = jnp.sum(key <= lo[None, :], axis=0, dtype=jnp.int32)
+    hik = jnp.min(jnp.where(key > lo[None, :], key, _I32_MAX),
+                  axis=0)
+    vk1 = jnp.where(cnt_le > k + 1, vk,
+                    jnp.where(hik != _I32_MAX, _key_to_float(hik), vk))
+    th = vk + frac * (vk1 - vk)
+    ssum = jnp.sum(jnp.where(mask, vals, 0.0), axis=0)
+    se = ssum / jnp.maximum(n, 1).astype(jnp.float32)
 
-        lax.fori_loop(0, ny, per_year, 0)
-
-        rkeys, ks, fracs, nfs, masks = [], [], [], [], []
-        umins, xors = [], []
-        for g in range(G):
-            vals = pool[g * zpad:(g + 1) * zpad, :]
-            mask = jnp.isfinite(vals)
-            ni = jnp.sum(mask.astype(jnp.int32), axis=0, keepdims=True)
-            nf = ni.astype(jnp.float32)
-            bits = lax.bitcast_convert_type(vals, jnp.uint32)
-            negb = bits >> 31
-            ukey = jnp.where(negb.astype(bool), ~bits,
-                             bits | jnp.uint32(0x80000000))
-            ukey = jnp.where(mask, ukey, big)
-            rkey = lax.bitcast_convert_type(
-                ukey ^ jnp.uint32(0x80000000), jnp.int32)
-            if pctile_int is not None:
-                num = (ni - 1) * jnp.int32(pctile_int)
-                k = jnp.maximum(num // 100, 0)
-                frac = (jnp.maximum(num - k * 100, 0).astype(jnp.float32)
-                        * jnp.float32(0.01))
-            else:
-                pos = jnp.float32(pctile / 100.0) * (nf - 1.0)
-                k = jnp.maximum(jnp.floor(pos), 0.0).astype(jnp.int32)
-                frac = pos - k.astype(jnp.float32)
-            # per-lane pooled min/max in the order-preserving SIGNED
-            # carrier (Mosaic has no unsigned reductions): masked rows
-            # are imax so min skips them; max masks them to int32-min
-            rmin = jnp.min(rkey, axis=0, keepdims=True)
-            rmax_s = jnp.max(jnp.where(mask, rkey,
-                                       jnp.int32(-0x80000000)),
-                             axis=0, keepdims=True)
-            umin = lax.bitcast_convert_type(
-                rmin, jnp.uint32) ^ jnp.uint32(0x80000000)
-            umax = lax.bitcast_convert_type(
-                rmax_s, jnp.uint32) ^ jnp.uint32(0x80000000)
-            # bits where this lane's pool actually differs; all-masked
-            # lanes contribute nothing (their output is NaN regardless)
-            xors.append(jnp.where(ni > 0, umin ^ umax, jnp.uint32(0)))
-            umins.append(umin)
-            rkeys.append(rkey)
-            ks.append(k)
-            fracs.append(frac)
-            nfs.append(nf)
-            masks.append(mask)
-
-        # COMMON-PREFIX SKIP: every finite key in a lane's pool shares
-        # its bits above that lane's min^max highest set bit — and so
-        # does the answer (an order statistic of the pool). Seed lo
-        # with that shared prefix and start the radix loop at the first
-        # bit where ANY lane/doy differs: the per-bit trajectory below
-        # the start is unchanged (identical counts, identical
-        # candidates), so the selected key is BIT-IDENTICAL to the full
-        # 32-iteration loop. SST pools for one doy span a few degC, so
-        # ~8-10 leading bits (sign+exponent+top mantissa) are common.
-        X = xors[0]
-        for g in range(1, G):
-            X = X | xors[g]
-        # highest set bit of X per lane (5-step binary search; no clz)
-        hb = jnp.zeros((1, LANES), jnp.int32)
-        xw = X
-        for s in (16, 8, 4, 2, 1):
-            t = xw >> jnp.uint32(s)
-            nz = lax.bitcast_convert_type(t, jnp.int32) != 0
-            xw = jnp.where(nz, t, xw)
-            hb = hb + jnp.where(nz, jnp.int32(s), jnp.int32(0))
-        maxbit = jnp.max(hb)  # scalar: worst lane over all G doys
-        sh = jnp.minimum(maxbit + 1, 31).astype(jnp.uint32)
-        himask = jnp.where(maxbit >= 31, jnp.uint32(0),
-                           jnp.uint32(0xFFFFFFFF) << sh)
-        i0 = jnp.int32(31) - maxbit
-
-        def bit_iter(i, los):
-            shift = (31 - i).astype(jnp.uint32)
-            out = []
-            for g in range(G):
-                cand = los[g] | (jnp.uint32(1) << shift)
-                cnt = jnp.sum((rkeys[g] < _signed(cand))
-                              .astype(jnp.int32), axis=0, keepdims=True)
-                out.append(jnp.where(cnt <= ks[g], cand, los[g]))
-            return tuple(out)
-
-        los = lax.fori_loop(
-            i0, 32, bit_iter,
-            tuple(umins[g] & himask for g in range(G)))
-
-        for g in range(G):
-            lo = los[g]
-            rlo = _signed(lo)
-            vk = to_float(lo)
-            cnt_le = jnp.sum((rkeys[g] <= rlo).astype(jnp.int32), axis=0,
-                             keepdims=True)
-            gt = jnp.where(rkeys[g] > rlo, rkeys[g], imax)
-            hik = jnp.min(gt, axis=0, keepdims=True)
-
-            def r_to_float(r):
-                u = lax.bitcast_convert_type(r, jnp.uint32) ^ jnp.uint32(
-                    0x80000000)
-                return to_float(u)
-
-            vk1 = jnp.where(cnt_le > ks[g] + 1, vk,
-                            jnp.where(hik != imax, r_to_float(hik), vk))
-            th = vk + fracs[g] * (vk1 - vk)
-            vals = pool[g * zpad:(g + 1) * zpad, :]
-            ssum = jnp.sum(jnp.where(masks[g], vals, 0.0), axis=0,
-                           keepdims=True)
-            seas = ssum / jnp.maximum(nfs[g], 1.0)
-            nanv = jnp.float32(jnp.nan)
-
-            @pl.when(d0 + g < ndoy)
-            def _():
-                th_ref[pl.ds(d0 + g, 1), :] = jnp.where(
-                    nfs[g] > 0, th, nanv)
-                se_ref[pl.ds(d0 + g, 1), :] = jnp.where(
-                    nfs[g] > 0, seas, nanv)
-        return 0
-
-    lax.fori_loop(0, nblk, per_block, 0)
+    nanv = jnp.float32(jnp.nan)
+    plgpu.store(th_ref.at[d, cols], jnp.where(n > 0, th, nanv),
+                mask=col_ok)
+    plgpu.store(se_ref.at[d, cols], jnp.where(n > 0, se, nanv),
+                mask=col_ok)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("ndoy", "ny", "rmax", "pctile", "interpret", "batch"),
-)
-def pallas_doy_clim(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90,
-                    interpret=False, batch=8):
-    """Pooled percentile+mean for all cells via the fused Pallas kernel.
-
-    ts_padded: (T + rmax, C) float32 with rmax trailing NaN rows;
-    starts/lens: flat (ndoy*ny,) int32 range tables.
-    Returns (thresh, seas) each (ndoy, C) float32.
-
-    ``batch``: doys processed per outer iteration (``_kernel_batched``).
-    The single-doy kernel (batch=0) is scalar-loop bound; measured on
-    v5e at (T=14610, C=4096): batch=0 122 ms, batch=2 24 ms, batch=8
-    21 ms, batch=16 20.6 ms per block — 5.9x from loop-count reduction
-    alone, bit-identical outputs (tests assert).
-    """
-    Tp, C = ts_padded.shape
-    assert C % LANES == 0, f"cell count {C} must be a multiple of {LANES}"
-    zpad = _round_up(ny * rmax, 8)
-    grid = (C // LANES,)
-
-    if batch:
-        # pad the range tables to a whole number of G-doy blocks with
-        # len=0 windows (all-NaN pool rows; output writes are guarded)
-        nblk = -(-ndoy // batch)
-        padn = (nblk * batch - ndoy) * ny
-        if padn:
-            starts = jnp.pad(starts, (0, padn))
-            lens = jnp.pad(lens, (0, padn))
-        kernel = functools.partial(
-            _kernel_batched, ndoy=ndoy, ny=ny, rmax=rmax, zpad=zpad,
-            pctile=pctile, G=batch)
-        scratch = pltpu.VMEM((batch * zpad, LANES), jnp.float32)
-    else:
-        kernel = functools.partial(
-            _kernel, ndoy=ndoy, ny=ny, rmax=rmax, zpad=zpad,
-            pctile=pctile)
-        scratch = pltpu.VMEM((zpad, LANES), jnp.float32)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((Tp, LANES), lambda i, *_: (0, i)),
-        ],
-        out_specs=[
-            pl.BlockSpec((ndoy, LANES), lambda i, *_: (0, i)),
-            pl.BlockSpec((ndoy, LANES), lambda i, *_: (0, i)),
-        ],
-        scratch_shapes=[scratch],
-    )
-    kw = {}
-    if not interpret:
-        # the series block is ~7.5 MB and double-buffered; batched pools
-        # push past the 16 MB scoped-vmem compiler default — raise it
-        # (v5e VMEM is far larger)
-        kw["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024)
-    th, se = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((ndoy, C), jnp.float32),
-            jax.ShapeDtypeStruct((ndoy, C), jnp.float32),
-        ],
-        interpret=interpret,
-        **kw,
-    )(starts, lens, ts_padded)
-    return th, se
-
-
-def doy_clim_pallas(ts, starts_np, lens_np, ny, rmax, pctile=90,
+    static_argnames=("ndoy", "ny", "rmax", "pctile", "interpret"))
+def pallas_doy_clim(ts, starts, lens, ndoy, ny, rmax, pctile=90,
                     interpret=False):
-    """Convenience wrapper: pads the series and cells, calls the kernel.
+    """Pooled percentile + mean for all cells of a (T, C) float32 block.
 
-    ts: (T, C) float32 (any C); returns (ndoy, C) thresh/seas.
+    ``starts``/``lens``: flat (ndoy*ny,) int32 range tables from
+    core.calendar.build_window_ranges. Returns (thresh, seas), each
+    (ndoy, C) float32, NaN where a pool is empty.
     """
     T, C = ts.shape
-    ndoy = starts_np.shape[0]
-    Cp = _round_up(max(C, LANES), LANES)
-    ts_p = jnp.pad(jnp.asarray(ts, jnp.float32),
-                   ((0, rmax), (0, Cp - C)), constant_values=jnp.nan)
-    starts = jnp.asarray(np.asarray(starts_np).reshape(-1), jnp.int32)
-    lens = jnp.asarray(np.asarray(lens_np).reshape(-1), jnp.int32)
-    th, se = pallas_doy_clim(ts_p, starts, lens, ndoy=ndoy, ny=ny,
-                             rmax=rmax, pctile=pctile, interpret=interpret)
-    return th[:, :C], se[:, :C]
+    bc = min(BLOCK_C, _next_pow2(C))
+    kernel = functools.partial(
+        _kernel, T=T, C=C, ny=ny, rmax=rmax, zp=_next_pow2(ny * rmax),
+        bc=bc, pctile=pctile)
+    out = jax.ShapeDtypeStruct((ndoy, C), jnp.float32)
+    return pl.pallas_call(
+        kernel,
+        grid=(ndoy, pl.cdiv(C, bc)),
+        out_shape=(out, out),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="doy_quantile",
+    )(starts, lens, ts.astype(jnp.float32))

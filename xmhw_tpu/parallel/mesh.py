@@ -1,7 +1,7 @@
 """Device-mesh sharding for the cell axis.
 
 The reference's only parallelism is a dask.delayed task per grid cell
-(reference: xmhw/xmhw.py:182-197, 437-454). The TPU-native replacement: all
+(reference: xmhw/xmhw.py:182-197, 437-454). The replacement here: all
 arrays carry a trailing dense ``cell`` axis, sharded over a 1-D device mesh
 with ``NamedSharding``. Every kernel in :mod:`xmhw_tpu.core` is elementwise
 or scan/reduce along the *time/doy* axes only, so XLA partitions the whole

@@ -447,7 +447,7 @@ def _block_ts_stats_device(out, dstime, mode, tdim, tyears, ts_flat,
     for lo in range(0, C, cell_block):
         hi = min(lo + cell_block, C)
         # f64 to match the host bincount accumulation (without x64 — the
-        # TPU planet-scale config — jnp silently keeps f32)
+        # accelerator planet-scale config — jnp silently keeps f32)
         ts_b = jnp.asarray(ts_flat[:, lo:hi].astype(np.float64))
         cats_b = (jnp.asarray(cats_flat[:, lo:hi].astype(np.float64))
                   if with_cats else jnp.zeros_like(ts_b))

@@ -1,6 +1,6 @@
 """Observability: timing, JAX profiler traces, and logging.
 
-The reference has no tracing/profiling support (SURVEY §5); the TPU-native
+The reference has no tracing/profiling support (SURVEY §5); the
 equivalents here are:
 
 * :func:`timed` — wall-clock timing context with device synchronization

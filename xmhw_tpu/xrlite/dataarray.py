@@ -1,4 +1,4 @@
-"""Lightweight labeled arrays: the I/O shell of the TPU framework.
+"""Lightweight labeled arrays: the I/O shell of the framework.
 
 The reference is built on xarray Datasets (reference: xmhw/xmhw.py:19,
 README.rst:16-21) — but xarray/dask are deliberately *not* dependencies

@@ -14,7 +14,7 @@ subset needed for marine-heatwave work:
 
 Everything here is host-side numpy: calendar structure is data-independent,
 so it is precomputed once and only small int32 tables (day-of-year indices)
-ever reach the TPU.
+ever reach the device.
 """
 
 from __future__ import annotations
